@@ -1,0 +1,99 @@
+"""Build the package's CUDA kernels with nvcc and load them with ctypes.
+
+Every ``csrc/*.cu`` file is compiled, at first use, into one shared library
+with a plain C interface::
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
+
+The library lands in ``build/kernels/`` beside the package, named by a hash
+of the sources, so an edited source is rebuilt and an unchanged one is
+loaded as it is. No source includes PyTorch's headers, which keeps a build at
+seconds. Importing this module builds nothing and needs no CUDA toolkit.
+
+Each C entry point takes every pointer and the stream as ``void*`` and
+returns ``cudaGetLastError()`` after its launch; the Python wrappers raise
+when that is not 0.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+from typing import Optional
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+
+_lock = threading.Lock()
+_lib: Optional[ctypes.CDLL] = None
+build_seconds: Optional[float] = None  # wall time of this process's build
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    if home and (Path(home) / "bin" / "nvcc").exists():
+        return str(Path(home) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")
+    if default.exists():
+        return str(default)
+    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH "
+                       "to build the CUDA kernels")
+
+
+def library_path() -> Path:
+    h = hashlib.sha256()
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    h.update(" ".join(ARCH_FLAGS).encode())
+    return BUILD_DIR / f"libobia_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build(verbose: bool = False) -> Path:
+    """Compile the sources unless the library for them exists; returns
+    its path. Raises with nvcc's output when the build fails."""
+    global build_seconds
+    out = library_path()
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
+           "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", str(tmp),
+           *map(str, _sources())]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    build_seconds = time.perf_counter() - t0
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
+    if verbose:
+        print(res.stderr.strip(), flush=True)
+    os.replace(tmp, out)  # atomic: a concurrent build never loads a torn file
+    return out
+
+
+def load() -> ctypes.CDLL:
+    """The kernel library, built on first call and cached in-process."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+            lib.obia_glcm_sums.argtypes = [p, p, ll, ll, ll, p, p, p, ll, i,
+                                           ctypes.POINTER(i), i, p, p, p]
+            lib.obia_glcm_sums.restype = i
+            _lib = lib
+        return _lib
