@@ -6,7 +6,8 @@
 Phases, in order; any failure raises and exits non-zero:
 
 1. require a CUDA device and print its name and power limit (nvidia-smi);
-2. build the CUDA kernels from ``obia_tpu_torch/csrc`` with nvcc;
+2. build the CUDA kernels from ``obia_tpu_torch/csrc`` with nvcc, one
+   process per source, all started together;
 3. hold the GLCM kernel against its plain-torch twin on an edge-case scene
    (integer sums and sum (C+C^T)^2 equal, sum 1/(1+d^2) within rtol 1e-6);
 4. drive the config-4 slice of ``bench.py`` at 4096^2 x 8 bands on the card:
@@ -18,12 +19,29 @@ Phases, in order; any failure raises and exits non-zero:
 5. cross-check: the same slice at 512^2 on the card and on the CPU (the
    plain path the CPU tests hold against the JAX reference): object counts
    within 1%, each feature column's mean within 1e-3 of the column's mean
-   magnitude.
+   magnitude;
+6. hold the quickshift density and parent kernels against their twins on
+   edge-case scenes (ragged 70x300 C=3, 96x80 C=1, 64x64 C=8, a constant
+   plateau) at radii 3, 15 and the largest the wrappers take: density within
+   rtol 1e-6, parent outputs exactly equal given the twin's rho, and the
+   kernel pipeline's roots against the twin pipeline's (partition agreement
+   >= 0.995); one radius past the largest must raise;
+7. drive the config-2 slice of ``bench.py`` at 1024^2 RGB on the card:
+   ``segment(method="quickshift", ratio=1.0, kernel_size=5, max_dist=10.0)``
+   (spectral + GLCM features of the 3 bands) and a (64,) MLP fitted for
+   max_iter=60, then ``predict_proba``, once cold (profiled) and once warm,
+   with the launch counts read around the warm run; a profiled warm run;
+   both quickshift kernels against their twins at 1024^2 and at
+   4096^2, and the GLCM kernel at this slice's object count, all timed with
+   CUDA events;
+8. cross-check: the config-2 slice at 256^2 on the card and on the CPU:
+   object counts within 1%, label partitions agreeing on >= 99.5% of the
+   pixels, column means as in phase 5.
 
 The last two lines are a JSON object of the kernels' counts, errors and
 times, and ``{"ok": true, "device": {...}}``. The script needs no network,
 JAX, pandas or sklearn (with sklearn importable, the forest is fitted by it;
-without, a seeded numpy forest stands in).
+without, a seeded numpy forest stands in; the MLP needs neither).
 """
 from __future__ import annotations
 
@@ -41,6 +59,10 @@ CROSS_SIZE = 512
 BANDS = 8
 N_SEGMENTS = 3000
 N_TREES = 300
+QS_SIZE = 1024          # config 2's own size (bench.py)
+QS_CROSS_SIZE = 256
+QS_BIG = 4096           # the kernels alone, as the JAX package timed them
+QS_KW = dict(method="quickshift", ratio=1.0, kernel_size=5, max_dist=10.0)
 
 
 def log(msg: str) -> None:
@@ -61,6 +83,14 @@ def config4_scene(size: int) -> np.ndarray:
     more = np.stack([np.roll(base3[..., i % 4], 17 * (i + 1), axis=i % 2)
                      for i in range(4)], axis=-1)
     return np.concatenate([base3, more], axis=-1).astype(np.uint8)
+
+
+def as_image(scene: np.ndarray):
+    from obia_tpu.geometry.affine import Affine
+    from obia_tpu_torch.handlers.geotif import image_from_array
+    h = scene.shape[0]
+    return image_from_array(scene, Affine(1.0, 0, 0, 0, -1.0, h),
+                            crs="EPSG:32633")
 
 
 def numpy_forest(X: np.ndarray, n_trees: int, depth: int = 8, seed: int = 0):
@@ -85,19 +115,25 @@ def numpy_forest(X: np.ndarray, n_trees: int, depth: int = 8, seed: int = 0):
                                    np.array([0, 1]), depth, device="cuda")
 
 
-def featurize_classify(table, device, seed: int = 0) -> np.ndarray:
-    """bench._featurize_classify on the port's table: features without
-    all-NaN columns -> median-split target -> seeded 20% training subset ->
-    fit -> predict_proba of every object."""
-    import torch
-
-    from obia_tpu_torch.classification.forest import forest_proba
+def training_table(table, seed: int = 0):
+    """bench._featurize_classify's table: features without all-NaN columns,
+    median-split target, seeded 20% training subset."""
     cols = [c for c in table.columns if c != "segment_id"]
     X = np.stack([table[c] for c in cols], axis=1).astype(np.float64)
     X = np.nan_to_num(X[:, ~np.isnan(X).all(axis=0)])
     y = (X[:, 0] > np.median(X[:, 0])).astype(int)
     n_train = max(10, int(len(X) * 0.2))
     idx = np.random.default_rng(seed).permutation(len(X))[:n_train]
+    return X, y, idx
+
+
+def featurize_classify(table, device, seed: int = 0) -> np.ndarray:
+    """Config 4's classify tail: fit a forest -> predict_proba of every
+    object."""
+    import torch
+
+    from obia_tpu_torch.classification.forest import forest_proba
+    X, y, idx = training_table(table, seed)
     try:
         from obia_tpu_torch.classification.forest import \
             TorchForestClassifier
@@ -111,9 +147,23 @@ def featurize_classify(table, device, seed: int = 0) -> np.ndarray:
     return clf.predict_proba(X)
 
 
+def mlp_classify(table, device, seed: int = 0) -> np.ndarray:
+    """Config 2's classify tail: fit a (64,) MLP for max_iter=60 ->
+    predict_proba of every object."""
+    from obia_tpu_torch import telemetry
+    from obia_tpu_torch.classification.mlp import TorchMLPClassifier
+    X, y, idx = training_table(table, seed)
+    clf = TorchMLPClassifier(hidden_layer_sizes=(64,), max_iter=60,
+                             random_state=0, device=device)
+    with telemetry.stage("classify.fit"):
+        clf.fit(X[idx], y[idx])
+    with telemetry.stage("classify.predict"):
+        return clf.predict_proba(X)
+
+
 def run_slice(image, device):
-    """segment + featurize/classify, synchronised; returns (segments,
-    proba, seconds)."""
+    """Config 4: segment + featurize/classify, synchronised; returns
+    (segments, proba, seconds)."""
     import torch
 
     from obia_tpu_torch.segmentation.segment import segment
@@ -122,6 +172,21 @@ def run_slice(image, device):
                 statistics_bands=list(range(BANDS)), method="slic",
                 n_segments=N_SEGMENTS, compactness=10, device=device)
     proba = featurize_classify(s.table, device)
+    s.table.geometry  # join the polygonisation thread
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+    return s, proba, time.perf_counter() - t0
+
+
+def run_config2(image, device):
+    """Config 2: quickshift segment + MLP fit/predict, synchronised; returns
+    (segments, proba, seconds)."""
+    import torch
+
+    from obia_tpu_torch.segmentation.segment import segment
+    t0 = time.perf_counter()
+    s = segment(image, device=device, **QS_KW)
+    proba = mlp_classify(s.table, device)
     s.table.geometry  # join the polygonisation thread
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize()
@@ -191,6 +256,164 @@ def time_ms(fn, n: int) -> float:
     return start.elapsed_time(end) / n
 
 
+def partition_agreement(a: np.ndarray, b: np.ndarray) -> float:
+    """Share of pixels whose segment is the same pixel set in both label
+    rasters (ids may differ)."""
+    a = np.unique(a.ravel(), return_inverse=True)[1]
+    b = np.unique(b.ravel(), return_inverse=True)[1]
+    pair = a.astype(np.int64) * (b.max() + 1) + b
+    _, pinv, pcount = np.unique(pair, return_inverse=True,
+                                return_counts=True)
+    both = pcount[pinv]
+    return float(((both == np.bincount(a)[a])
+                  & (both == np.bincount(b)[b])).mean())
+
+
+def check_column_means(gpu_table, cpu_table) -> None:
+    """Each feature column's mean on the card within 1e-3 of the column's
+    mean magnitude on the CPU, with the NaN slots equal (a plain relative
+    bound is ill-conditioned for a mean near 0, e.g. skewness)."""
+    worst = ("", 0.0)
+    for c in cpu_table.columns:
+        if not np.array_equal(np.isnan(gpu_table[c]),
+                              np.isnan(cpu_table[c])):
+            raise AssertionError(f"column {c}: NaN slots differ")
+        if np.isnan(cpu_table[c]).all():
+            continue  # the point-cloud slots: NaN by design
+        a, b = np.nanmean(gpu_table[c]), np.nanmean(cpu_table[c])
+        scale = np.nanmean(np.abs(cpu_table[c]))
+        rel = abs(a - b) / max(scale, 1e-12)
+        if rel > worst[1]:
+            worst = (c, rel)
+        if not rel <= 1e-3:
+            raise AssertionError(f"column {c}: mean {a} (card) vs {b} (CPU)")
+    log(f"  column means: worst |diff| / mean|value| {worst[1]:.3e} "
+        f"({worst[0]})")
+
+
+def cross_check(run, scene, what: str) -> None:
+    """The slice on the card and on the CPU: counts within 1%, label
+    partitions agreeing on >= 99.5% of the pixels, column means close."""
+    image = as_image(scene)
+    sg, _, _ = run(image, "cuda")
+    sc, _, _ = run(image, "cpu")
+    ng, nc = len(sg.table), len(sc.table)
+    agree = partition_agreement(sg.label_raster, sc.label_raster)
+    same = float((sg.label_raster == sc.label_raster).mean())
+    log(f"cross-check {what}: {ng} objects on the card, {nc} on the CPU; "
+        f"label rasters agree on {same:.6f} of the pixels, partitions on "
+        f"{agree:.6f}")
+    if abs(ng - nc) > 0.01 * nc:
+        raise AssertionError("object counts differ by more than 1%")
+    if agree < 0.995:
+        raise AssertionError(f"partition agreement {agree} < 0.995")
+    check_column_means(sg.table, sc.table)
+
+
+def qs_scenes():
+    """(C, H, W) edge-case scenes for the quickshift kernels."""
+    rng = np.random.default_rng(11)
+    return {
+        "ragged 70x300 C=3": rng.random((3, 70, 300)).astype(np.float32),
+        "96x80 C=1": rng.random((1, 96, 80)).astype(np.float32),
+        "64x64 C=8": rng.random((8, 64, 64)).astype(np.float32),
+        "plateau 64x64 C=3": np.full((3, 64, 64), 0.5, np.float32),
+    }
+
+
+def qs_compare(x, radius: int, k: float, md: float, noise, what: str):
+    """Both quickshift kernels against their twins on the same CUDA inputs:
+    the density within rtol 1e-6, the parent outputs equal given the twin's
+    rho, and the kernel pipeline's roots against the twin pipeline's.
+    Returns (density max abs err, parent max abs err, root agreement)."""
+    import torch
+
+    from obia_tpu_torch.ops import quickshift_kernel as qk
+    from obia_tpu_torch.ops.quickshift import flatten_tree
+    before = dict(qk.launches)
+    rho_k = qk.quickshift_density(x, radius, k)
+    rho_t = qk.quickshift_density_reference(x, radius, k)
+    rn_t = rho_t + noise
+    d2_k, off_k = qk.quickshift_parent(x, rn_t, radius, md)
+    d2_t, off_t = qk.quickshift_parent_reference(x, rn_t, radius, md)
+    # the pipelines end to end: kernel -> kernel vs twin -> twin
+    root_k = flatten_tree(qk.quickshift_parent(x, rho_k + noise, radius,
+                                               md)[1])[0]
+    root_t = flatten_tree(off_t)[0]
+    torch.cuda.synchronize()
+    qk.launches.update(before)  # comparison launches do not count
+    d_rho = float((rho_k - rho_t).abs().max())
+    rel = float(((rho_k - rho_t).abs() / rho_t.abs()).max())
+    same_d2 = torch.equal(d2_k, d2_t)
+    same_off = torch.equal(off_k, off_t)
+    fin = torch.isfinite(d2_t)
+    d_d2 = (float((d2_k[fin] - d2_t[fin]).abs().max()) if bool(fin.any())
+            else 0.0)
+    agree = partition_agreement(root_k.cpu().numpy(), root_t.cpu().numpy())
+    log(f"  {what}, r={radius}: density max|diff| {d_rho:.3e} (rel "
+        f"{rel:.3e}); parent d2 equal {same_d2}, offsets equal {same_off} "
+        f"({int((off_t != 0).sum())} linked); roots: partition agreement "
+        f"{agree:.6f}")
+    if not torch.allclose(rho_k, rho_t, rtol=1e-6, atol=0):
+        raise AssertionError(f"density kernel disagrees ({what}, r={radius})")
+    if not (same_d2 and same_off):
+        raise AssertionError(f"parent kernel disagrees ({what}, r={radius})")
+    if agree < 0.995:
+        raise AssertionError(f"root partition agreement {agree} < 0.995 "
+                             f"({what}, r={radius})")
+    return d_rho, (0.0 if same_d2 else d_d2), agree
+
+
+def qs_inputs(scene: np.ndarray):
+    """The scaled (C, H, W) Lab image and tie noise that config 2's
+    segment() hands the quickshift kernels."""
+    import torch
+
+    from obia_tpu_torch.ops.color import rgb_to_lab
+    from obia_tpu_torch.ops.quickshift import _tie_noise
+    from obia_tpu_torch.segmentation.segment_boundaries import \
+        _normalize_select
+    img = _normalize_select(torch.as_tensor(scene, device="cuda").float(),
+                            [0, 1, 2])
+    x = (rgb_to_lab(img) * QS_KW["ratio"]).permute(2, 0, 1).contiguous()
+    return x, _tie_noise(42, scene.shape[:2], "cuda")
+
+
+def qs_time(x, noise, what: str, n: int):
+    """CUDA-event times of both kernels and both twins on the same inputs;
+    returns (density err, parent err, ms density, plain ms density, ms
+    parent, plain ms parent)."""
+    from obia_tpu_torch.ops import quickshift_kernel as qk
+    k, md, r = QS_KW["kernel_size"], QS_KW["max_dist"], 15
+    errs = qs_compare(x, r, k, md, noise, what)
+    rn = qk.quickshift_density_reference(x, r, k) + noise
+    before = dict(qk.launches)
+    t = (time_ms(lambda: qk.quickshift_density(x, r, k), n),
+         time_ms(lambda: qk.quickshift_density_reference(x, r, k), 1),
+         time_ms(lambda: qk.quickshift_parent(x, rn, r, md), n),
+         time_ms(lambda: qk.quickshift_parent_reference(x, rn, r, md), 1))
+    qk.launches.update(before)
+    log(f"  {what}: density kernel {t[0]:.3f} ms, twin {t[1]:.3f} ms; "
+        f"parent kernel {t[2]:.3f} ms, twin {t[3]:.3f} ms")
+    return errs[0], errs[1], *t
+
+
+def profiled(run, image, what: str):
+    """``run`` on the card with the telemetry on (the device synced at every
+    stage); logs every stage and returns what ``run`` returns."""
+    from obia_tpu_torch import telemetry
+    telemetry.reset()
+    telemetry.enable(True)
+    try:
+        out = run(image, "cuda")
+    finally:
+        telemetry.enable(False)
+    log(f"{what} (device synced at every stage): {out[2]:.3f} s")
+    for name, r in telemetry.report().items():
+        log(f"  stage {name}: {1000 * r['total_s']:.1f} ms")
+    return out
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -199,10 +422,10 @@ def main() -> None:
     card = card_line()
     log(f"card: {card}")
     sys.path.insert(0, ROOT)
-    from obia_tpu.geometry.affine import Affine
-    from obia_tpu_torch import _build, telemetry
-    from obia_tpu_torch.handlers.geotif import image_from_array
+    from obia_tpu_torch import _build
+    from obia_tpu_torch.classification import forest as tforest
     from obia_tpu_torch.ops import glcm_kernel
+    from obia_tpu_torch.ops import quickshift_kernel as qk
     log(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"cuda {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
 
@@ -223,9 +446,7 @@ def main() -> None:
                                       f"edge-case scene band {band}"))
 
     # -- 4. the config-4 slice at full width --------------------------------
-    scene = config4_scene(SIZE)
-    image = image_from_array(scene, Affine(1.0, 0, 0, 0, -1.0, SIZE),
-                             crs="EPSG:32633")
+    image = as_image(config4_scene(SIZE))
     mp = SIZE * SIZE / 1e6
     s_cold, _, cold = run_slice(image, "cuda")
     glcm_kernel.launches = 0
@@ -249,14 +470,7 @@ def main() -> None:
             raise AssertionError(f"b{b}_mean holds NaN")
     if len(s.table.geometry) != n_obj:
         raise AssertionError("geometry count != object count")
-
-    telemetry.reset()
-    telemetry.enable(True)
-    _, _, prof = run_slice(image, "cuda")
-    telemetry.enable(False)
-    log(f"profiled run (device synced at every stage): {prof:.3f} s")
-    for name, r in telemetry.report().items():
-        log(f"  stage {name}: {1000 * r['total_s']:.1f} ms")
+    profiled(run_slice, image, "profiled run")
 
     labels = s.layer.labels_dev
     args = glcm_inputs(image.device_tensor("cuda"), labels, n_obj, 0)
@@ -269,43 +483,96 @@ def main() -> None:
         f"plain torch {plain_ms:.3f} ms ({card})")
 
     # -- 5. cross-check against the CPU plain path ------------------------
-    small = config4_scene(CROSS_SIZE)
-    im_small = image_from_array(small, Affine(1.0, 0, 0, 0, -1.0,
-                                              CROSS_SIZE), crs="EPSG:32633")
-    sg, _, _ = run_slice(im_small, "cuda")
-    sc, _, _ = run_slice(im_small, "cpu")
-    ng, nc = len(sg.table), len(sc.table)
-    log(f"cross-check {CROSS_SIZE}^2: {ng} objects on the card, {nc} on the "
-        f"CPU")
-    if abs(ng - nc) > 0.01 * nc:
-        raise AssertionError("object counts differ by more than 1%")
-    same = float((sg.label_raster == sc.label_raster).mean())
-    log(f"  label rasters agree on {same:.6f} of the pixels")
-    # means are held to 1e-3 of the column's mean magnitude: a plain
-    # relative bound is ill-conditioned for a mean near 0 (skewness)
-    worst = ("", 0.0)
-    for c in sc.table.columns:
-        if not np.array_equal(np.isnan(sg.table[c]), np.isnan(sc.table[c])):
-            raise AssertionError(f"column {c}: NaN slots differ")
-        if np.isnan(sc.table[c]).all():
-            continue  # the point-cloud slots: NaN by design
-        a, b = np.nanmean(sg.table[c]), np.nanmean(sc.table[c])
-        scale = np.nanmean(np.abs(sc.table[c]))
-        rel = abs(a - b) / max(scale, 1e-12)
-        if rel > worst[1]:
-            worst = (c, rel)
-        if not rel <= 1e-3:
-            raise AssertionError(f"column {c}: mean {a} (card) vs {b} (CPU)")
-    log(f"cross-check column means: worst |diff| / mean|value| "
-        f"{worst[1]:.3e} ({worst[0]})")
+    cross_check(run_slice, config4_scene(CROSS_SIZE), f"config 4 "
+                f"{CROSS_SIZE}^2")
+
+    # -- 6. quickshift kernels vs twins, edge cases -----------------------
+    qs_err = [0.0, 0.0]
+    for name, scene in qs_scenes().items():
+        x = torch.as_tensor(scene, device="cuda")
+        C, H, W = x.shape
+        noise = torch.as_tensor(np.random.default_rng(C).normal(
+            0, 1e-5, (H, W)).astype(np.float32), device="cuda")
+        r_max = qk.max_radius(C)
+        for r in (3, 15, r_max):
+            e = qs_compare(x, r, r / 3.0, 0.6 * r, noise, name)
+            qs_err = [max(qs_err[0], e[0]), max(qs_err[1], e[1])]
+        try:
+            qk.quickshift_parent(x, noise + 1.0, r_max + 1, 1.0)
+        except ValueError as exc:
+            log(f"  {name}, r={r_max + 1}: raises ({exc})")
+        else:
+            raise AssertionError(f"radius {r_max + 1} past the limit did "
+                                 f"not raise ({name})")
+
+    # -- 7. the config-2 slice at its own size ----------------------------
+    from bench import build_scene
+    image2 = as_image(build_scene(h=QS_SIZE, w=QS_SIZE))
+    mp2 = QS_SIZE * QS_SIZE / 1e6
+    s2_cold, _, cold2 = profiled(run_config2, image2, "cold run")
+    glcm_kernel.launches = 0
+    qk.launches.update(qs_density=0, qs_parent=0)
+    s2, proba2, warm2 = run_config2(image2, "cuda")
+    qs_launches = dict(qk.launches)
+    glcm2 = glcm_kernel.launches
+    n2 = len(s2.table)
+    same2 = np.array_equal(s2_cold.label_raster, s2.label_raster)
+    log(f"cold and warm label rasters identical: {same2}")
+    log(f"config-2 slice {QS_SIZE}^2 RGB: {n2} objects, cold {cold2:.3f} s,"
+        f" warm {warm2:.3f} s, {mp2 / warm2:.3f} MP/s warm; launches "
+        f"{qs_launches}, GLCM {glcm2}")
+    if min(qs_launches.values()) < 1 or glcm2 < 3:
+        raise AssertionError(f"config-2 run missed a kernel: {qs_launches},"
+                             f" GLCM {glcm2}")
+    if proba2.shape[0] != n2 or not np.allclose(proba2.sum(1), 1.0,
+                                                atol=1e-5):
+        raise AssertionError("MLP predict_proba rows do not sum to 1")
+    if not np.isfinite(proba2).all() or len(s2.table.geometry) != n2:
+        raise AssertionError("non-finite probabilities or missing geometry")
+    for b in range(3):
+        if np.isnan(s2.table[f"b{b}_mean"]).any():
+            raise AssertionError(f"b{b}_mean holds NaN")
+    tforest._FIT_CACHE.clear()  # the split shows the fit, not a cache hit
+    profiled(run_config2, image2, "profiled warm run")
+
+    x2, noise2 = qs_inputs(build_scene(h=QS_SIZE, w=QS_SIZE))
+    e_rho, e_par, qs_ms, qs_plain, qp_ms, qp_plain = qs_time(
+        x2, noise2, f"{QS_SIZE}^2 C=3 r=15", 20)
+    qs_err = [max(qs_err[0], e_rho), max(qs_err[1], e_par)]
+    xb, noiseb = qs_inputs(build_scene(h=QS_BIG, w=QS_BIG))
+    qs_time(xb, noiseb, f"{QS_BIG}^2 C=3 r=15", 5)
+    del xb, noiseb
+    args2 = glcm_inputs(image2.device_tensor("cuda"), s2.layer.labels_dev,
+                        n2, 0)
+    compare_kernel(args2, f"config-2 {QS_SIZE}^2 band 0")
+    before = glcm_kernel.launches
+    g_ms = time_ms(lambda: glcm_kernel.glcm_sums(*args2), 10)
+    g_plain = time_ms(lambda: glcm_kernel.glcm_sums_reference(*args2), 3)
+    glcm_kernel.launches = before
+    log(f"GLCM one band at {QS_SIZE}^2, K={n2}: kernel {g_ms:.3f} ms, "
+        f"plain torch {g_plain:.3f} ms ({card})")
+
+    # -- 8. config-2 cross-check against the CPU plain path ---------------
+    cross_check(run_config2, build_scene(h=QS_CROSS_SIZE, w=QS_CROSS_SIZE),
+                f"config 2 {QS_CROSS_SIZE}^2")
 
     log(card_line())
-    log(json.dumps({"kernels": [{
-        "name": "glcm_sums", "route": "cuda",
-        "source": "obia_tpu_torch/csrc/glcm.cu",
-        "replaces": "obia_tpu/ops/glcm_pallas.py:220",
-        "launches": launches, "max_abs_err": err, "ms": ms,
-        "plain_ms": plain_ms}]}))
+    log(json.dumps({"kernels": [
+        {"name": "glcm_sums", "route": "cuda",
+         "source": "obia_tpu_torch/csrc/glcm.cu",
+         "replaces": "obia_tpu/ops/glcm_pallas.py:220",
+         "launches": launches, "max_abs_err": err, "ms": ms,
+         "plain_ms": plain_ms},
+        {"name": "qs_density", "route": "cuda",
+         "source": "obia_tpu_torch/csrc/quickshift.cu",
+         "replaces": "obia_tpu/ops/quickshift_pallas.py:118",
+         "launches": qs_launches["qs_density"], "max_abs_err": qs_err[0],
+         "ms": qs_ms, "plain_ms": qs_plain},
+        {"name": "qs_parent", "route": "cuda",
+         "source": "obia_tpu_torch/csrc/quickshift.cu",
+         "replaces": "obia_tpu/ops/quickshift_pallas.py:144",
+         "launches": qs_launches["qs_parent"], "max_abs_err": qs_err[1],
+         "ms": qp_ms, "plain_ms": qp_plain}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -12,6 +12,7 @@ C++ polygoniser) and ``config``.
     from obia_tpu_torch.handlers.geotif import open_geotiff, image_from_array
     from obia_tpu_torch.segmentation.segment import segment, Segments
     from obia_tpu_torch.classification.forest import TorchForestClassifier
+    from obia_tpu_torch.classification.mlp import TorchMLPClassifier
 
 Importing the package switches TF32 off for float32 matmuls and cuDNN
 convolutions (``torch.backends.cuda.matmul.allow_tf32`` and
@@ -26,7 +27,7 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
 __all__ = ["__version__", "open_geotiff", "image_from_array", "segment",
-           "TorchForestClassifier"]
+           "TorchForestClassifier", "TorchMLPClassifier"]
 
 
 def __getattr__(name):
@@ -40,4 +41,7 @@ def __getattr__(name):
     if name == "TorchForestClassifier":
         from .classification.forest import TorchForestClassifier
         return TorchForestClassifier
+    if name == "TorchMLPClassifier":
+        from .classification.mlp import TorchMLPClassifier
+        return TorchMLPClassifier
     raise AttributeError(f"module 'obia_tpu_torch' has no attribute {name!r}")

@@ -1,9 +1,11 @@
 """Build the package's CUDA kernels with nvcc and load them with ctypes.
 
-Every ``csrc/*.cu`` file is compiled, at first use, into one shared library
-with a plain C interface::
+Every ``csrc/*.cu`` file is compiled, at first use, to an object file by
+its own nvcc process (all started together), and the objects are linked into
+one shared library with a plain C interface::
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
+    nvcc -gencode arch=compute_90a,code=sm_90a -O3 -c -Xcompiler -fPIC x.cu
+    nvcc -shared -o libobia_kernels_<hash>.so *.o
 
 The library lands in ``build/kernels/`` beside the package, named by a hash
 of the sources, so an edited source is rebuilt and an unchanged one is
@@ -70,17 +72,33 @@ def build(verbose: bool = False) -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
-           "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", str(tmp),
-           *map(str, _sources())]
+    tag = f"{out.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in _sources()]
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
+    procs = [subprocess.Popen(
+        [_nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-c", "-Xcompiler",
+         "-fPIC", "-Xptxas", "-v", "-o", str(obj), str(src)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for src, obj in zip(_sources(), objs)]
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    try:
+        logs = [proc.communicate()[1].strip() for proc in procs]
+        for src, proc, log in zip(_sources(), procs, logs):
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {src.name} "
+                                   f"({proc.returncode}):\n{log}")
+        res = subprocess.run([_nvcc(), *ARCH_FLAGS, "-shared", "-o",
+                              str(tmp), *map(str, objs)],
+                             capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({res.returncode}):\n"
+                               f"{res.stderr}")
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     build_seconds = time.perf_counter() - t0
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
     if verbose:
-        print(res.stderr.strip(), flush=True)
+        print("\n".join(logs), flush=True)
     os.replace(tmp, out)  # atomic: a concurrent build never loads a torn file
     return out
 
@@ -95,5 +113,10 @@ def load() -> ctypes.CDLL:
             lib.obia_glcm_sums.argtypes = [p, p, ll, ll, ll, p, p, p, ll, i,
                                            ctypes.POINTER(i), i, p, p, p]
             lib.obia_glcm_sums.restype = i
+            f = ctypes.c_float
+            lib.obia_qs_density.argtypes = [p, i, ll, ll, i, i, f, p, p]
+            lib.obia_qs_density.restype = i
+            lib.obia_qs_parent.argtypes = [p, p, i, ll, ll, i, i, f, p, p, p]
+            lib.obia_qs_parent.restype = i
             _lib = lib
         return _lib

@@ -1,8 +1,9 @@
 """Segment boundaries: raster -> dense label raster -> polygons (port of
 ``obia_tpu/segmentation/segment_boundaries.py``).
 
-SLIC, connectivity and the small-segment merge run on the chosen device;
-the labels cross to the host once, as row-wise runs, and the shared native
+SLIC (with connectivity and the small-segment merge) or quickshift (with
+connected components of its root raster) runs on the chosen device; the
+labels cross to the host once, as row-wise runs, and the shared native
 polygoniser (``obia_tpu.native``) traces every object from those runs,
 optionally in a background thread that overlaps the device featurisation.
 The result is a pandas-free :class:`SegmentLayer`.
@@ -24,6 +25,10 @@ _SLIC_KWARGS = {
     "n_segments", "compactness", "max_num_iter", "sigma", "spacing",
     "convert2lab", "enforce_connectivity", "min_size_factor",
     "max_size_factor", "slic_zero", "start_label", "mask", "channel_axis",
+}
+_QUICKSHIFT_KWARGS = {
+    "ratio", "kernel_size", "max_dist", "sigma", "convert2lab", "rng",
+    "random_seed", "channel_axis",
 }
 
 
@@ -102,19 +107,30 @@ def create_segments(image, segmentation_bands=None, method: str = "slic",
                     **kwargs) -> SegmentLayer:
     """Segment an image into a :class:`SegmentLayer` (segment_id 1..N).
 
-    ``device`` is where segmentation runs; None runs it where the image's
-    numpy data lives, the CPU. Only ``method="slic"`` is ported. With
+    ``method`` is ``"slic"`` or ``"quickshift"``; ``device`` is where
+    segmentation runs; None runs it where the image's numpy data lives, the
+    CPU. Quickshift's roots go straight to connected components, which
+    number them in raster order: the reference's host compaction followed
+    by ``relabel_connected`` gives the same labels. With
     ``_async_polygonize`` the host polygonisation runs in a background
     thread (the native tracer releases the GIL) and ``geometry`` joins it.
     """
+    from ..ops.connectivity import ccl_dense_labels
     from ..ops.slic import LazyRLERaster, download_labels_rle, slic_dense
 
-    if method != "slic":
-        raise NotImplementedError(
-            f"method={method!r}: only slic is ported to obia_tpu_torch")
-    unknown = set(kwargs) - _SLIC_KWARGS
-    if unknown:
-        raise TypeError(f"slic got unexpected arguments: {sorted(unknown)}")
+    if method == "slic":
+        unknown = set(kwargs) - _SLIC_KWARGS
+        if unknown:
+            raise TypeError(f"slic got unexpected arguments: "
+                            f"{sorted(unknown)}")
+    elif method == "quickshift":
+        unknown = set(kwargs) - _QUICKSHIFT_KWARGS
+        if unknown:
+            raise TypeError(
+                f"quickshift got unexpected arguments: {sorted(unknown)} "
+                "(note: quickshift takes no 'mask' — reference quirk #12)")
+    else:
+        raise Exception("An unknown segmentation method was requested.")
     image = as_image(image)
     device = torch.device("cpu" if device is None else device)
     H, W, num_bands = image.img_data.shape
@@ -125,18 +141,24 @@ def create_segments(image, segmentation_bands=None, method: str = "slic",
             raise IndexError(f"Band index {band} out of range. Available "
                              f"bands indices: 0 to {num_bands - 1}.")
     mp = H * W / 1e6
-    enforce = kwargs.get("enforce_connectivity", True)
-    dense_kwargs = {k: v for k, v in kwargs.items()
-                    if k not in ("start_label", "enforce_connectivity")}
     with telemetry.stage("segment.kernel", mp):
         img = _normalize_select(image.device_tensor(device), bands)
-        labels, n_labels = slic_dense(img, enforce_connectivity=enforce,
-                                      **dense_kwargs)
-        if not enforce:
-            # one label per connected region, without the merge
-            from ..ops.connectivity import ccl_dense_labels
-            labels, n_labels = ccl_dense_labels(labels)
-    with telemetry.stage("slic.download"):
+        if method == "quickshift":
+            from ..ops.quickshift import quickshift_tree
+            root = quickshift_tree(img, **kwargs)[0]
+            with telemetry.stage("segment.ccl", mp):
+                labels, n_labels = ccl_dense_labels(root)
+        else:
+            enforce = kwargs.get("enforce_connectivity", True)
+            dense_kwargs = {k: v for k, v in kwargs.items()
+                            if k not in ("start_label",
+                                         "enforce_connectivity")}
+            labels, n_labels = slic_dense(img, enforce_connectivity=enforce,
+                                          **dense_kwargs)
+            if not enforce:
+                # one label per connected region, without the merge
+                labels, n_labels = ccl_dense_labels(labels)
+    with telemetry.stage("segment.download"):
         label_raster = LazyRLERaster(*download_labels_rle(labels))
 
     def polygonize():

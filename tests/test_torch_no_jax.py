@@ -1,6 +1,7 @@
 """obia_tpu_torch runs with jax, pandas, sklearn and PIL unavailable, as on
 a machine that has only torch, numpy and scipy: the port imports none of
-them on its main path, and never loads jax."""
+them on its main paths (SLIC + forest, quickshift + MLP), and never loads
+jax, flax or optax."""
 import subprocess
 import sys
 import textwrap
@@ -49,9 +50,20 @@ SCRIPT = textwrap.dedent("""
         classes=[0, 1], max_depth=1)
     p = forest_proba(forest, torch.as_tensor(X)).numpy()
     assert np.allclose(p.sum(1), 1.0)
+
+    from obia_tpu_torch.classification.mlp import TorchMLPClassifier
+    q = segment(image, segmentation_bands=[0, 1, 2], method="quickshift",
+                kernel_size=2, max_dist=8.0, device="cpu")
+    tq = q.table
+    assert len(tq) > 3 and len(tq.geometry) == len(tq)
+    Xq = np.nan_to_num(np.stack([tq[c] for c in tq.columns
+                                 if c != "segment_id"], axis=1))
+    clf = TorchMLPClassifier(hidden_layer_sizes=(8,), max_iter=3)
+    clf.fit(Xq, Xq[:, 0] > np.median(Xq[:, 0]))
+    assert np.allclose(clf.predict_proba(Xq).sum(1), 1.0, atol=1e-5)
     for mod in BLOCKED:
         assert mod not in sys.modules, mod
-    print("NO_JAX_OK", len(t), f)
+    print("NO_JAX_OK", len(t), f, len(tq))
 """)
 
 
