@@ -36,7 +36,25 @@ Phases, in order; any failure raises and exits non-zero:
    CUDA events;
 8. cross-check: the config-2 slice at 256^2 on the card and on the CPU:
    object counts within 1%, label partitions agreeing on >= 99.5% of the
-   pixels, column means as in phase 5.
+   pixels, column means as in phase 5;
+9. hold the seam-spanner histogram kernel against its twin on an edge-case
+   scene sharded 2 x 4 on the card (spanners across the row seam, a column
+   seam and a corner, a constant-band spanner, a 1-pixel piece of a
+   spanner on one shard) at 16 and 256 levels: every count equal;
+10. drive config 5 of ``bench.py`` at its real size (``OBIA_BENCH5_REAL=1``:
+   4096^2 RGB, n_segments=3000, compactness=10) through ``mosaic_pipeline``
+   on a 2 x 4 mesh of shards on the one card, once cold and once warm, with
+   the launch counts read around the warm run (``glcm_sums`` >= 24,
+   ``glcm_hist`` >= 1 per shard with spanners per band); a profiled run for
+   the stage split; the histogram kernel against its twin on one band of
+   that scene, both timed with CUDA events;
+11. sharded against single-device on the card, on the same normalised
+   image: SLIC labels (convert2lab=False) as partitions agreeing on
+   >= 99.5% of the pixels, and every feature column of the mosaic against
+   single-device ``create_objects`` on the mosaic's labels (rtol 2e-4,
+   atol 1e-5; skewness and kurtosis atol 2e-3);
+12. cross-check: config 5 at 768^2 (``bench.py``'s default size for it) on
+   the card and on the CPU, as in phase 8.
 
 The last two lines are a JSON object of the kernels' counts, errors and
 times, and ``{"ok": true, "device": {...}}``. The script needs no network,
@@ -63,6 +81,9 @@ QS_SIZE = 1024          # config 2's own size (bench.py)
 QS_CROSS_SIZE = 256
 QS_BIG = 4096           # the kernels alone, as the JAX package timed them
 QS_KW = dict(method="quickshift", ratio=1.0, kernel_size=5, max_dist=10.0)
+C5_SIZE = 4096          # bench.py config 5 with OBIA_BENCH5_REAL=1
+C5_CROSS_SIZE = 768     # bench.py's default size for config 5
+C5_SHARDS = 8           # the 2 x 4 mesh
 
 
 def log(msg: str) -> None:
@@ -191,6 +212,92 @@ def run_config2(image, device):
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize()
     return s, proba, time.perf_counter() - t0
+
+
+def run_config5(image, device):
+    """Config 5: ``mosaic_pipeline`` over a 2 x 4 mesh of shards on
+    ``device``, synchronised; returns (result, None, seconds), the result
+    with the object table, the layer and the host label raster."""
+    import types
+
+    import torch
+
+    from obia_tpu_torch.parallel.mesh import make_mesh
+    from obia_tpu_torch.parallel.mosaic import mosaic_pipeline
+    t0 = time.perf_counter()
+    objects = mosaic_pipeline(image, n_segments=N_SEGMENTS, compactness=10.0,
+                              mesh=make_mesh(C5_SHARDS, [device]))
+    objects.geometry  # join the polygonisation thread
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    return types.SimpleNamespace(
+        table=objects, layer=objects.layer,
+        label_raster=np.asarray(objects.layer.label_raster)), None, seconds
+
+
+def seam_scene():
+    """A 32 x 48 scene for the 2 x 4 mesh (16 x 12 shards): small grid
+    objects, spanners across the row seam, a column seam and a corner of
+    four shards, a constant-band spanner (quantiser inverse 0), a spanner
+    with a 1-pixel piece on one shard, and a masked hole."""
+    rng = np.random.default_rng(3)
+    lab = (np.arange(32)[:, None] // 5 * 10
+           + np.arange(48)[None, :] // 5).astype(np.int32)
+    lab[12:20, 8:16] = 100
+    lab[2:8, 20:28] = 101
+    lab[14:19, 30:34] = 102
+    lab[20:30, 34:40] = 103
+    lab[3:16, 44:48] = 104
+    lab[16, 45] = 104
+    lab[24:26, 4:6] = -1
+    ids, inv = np.unique(lab, return_inverse=True)
+    lab = inv.reshape(lab.shape).astype(np.int32) - int(ids[0] < 0)
+    img = rng.integers(0, 256, (32, 48, 2)).astype(np.float32)
+    img[lab == lab[20, 36]] = 5.0
+    return img, lab, int(lab.max()) + 1
+
+
+def hist_calls(mesh, image_sh, labels_sh, K, levels, band):
+    """The (shard, glcm_hist arguments) of every shard with seam spanners,
+    as ``sharded_glcm_sums`` builds them for one band."""
+    from obia_tpu_torch.ops import glcm
+    from obia_tpu_torch.parallel import glcm_sharded as gs
+    mins, multi, present = gs.glcm_prepass(mesh, image_sh, labels_sh, K,
+                                           (band,))
+    mn = mins[:, 4].contiguous()
+    inv = glcm.quant_inv(-mins[:, 5] - mn, levels).contiguous()
+    shards = gs.shard_inputs(mesh, image_sh, labels_sh,
+                             glcm._bboxes_from_mins(mins), multi, present, 2)
+    offsets = glcm.angle_offsets(2, glcm.DEFAULT_ANGLES)
+    return [(key, (lab_h, img_h, band, objs, boxes, mn, inv, levels,
+                   offsets))
+            for key, (lab_h, img_h, _, objs, boxes) in shards.items()
+            if objs.numel()]
+
+
+def compare_hist(calls, what: str) -> int:
+    """glcm_hist against its twin on every call; returns the max abs
+    difference of the counts (0 or it raises)."""
+    import torch
+
+    from obia_tpu_torch.ops import glcm_kernel
+    before = glcm_kernel.hist_launches
+    err, slots, pairs = 0, 0, 0
+    for key, args in calls:
+        got = glcm_kernel.glcm_hist(*args)
+        want = glcm_kernel.glcm_hist_reference(*args)
+        torch.cuda.synchronize()
+        err = max(err, int((got.long() - want.long()).abs().max()))
+        slots += got.shape[0]
+        pairs += int(want.sum())
+    glcm_kernel.hist_launches = before  # comparison launches do not count
+    log(f"  {what}: {len(calls)} shards with spanners, {slots} spanner "
+        f"tables, {pairs} pairs; max|diff| {err}")
+    if err != 0 or not calls:
+        raise AssertionError(f"GLCM histogram kernel disagrees with its twin"
+                             f" or saw no spanner ({what})")
+    return err
 
 
 def glcm_inputs(image_t, labels, K, band):
@@ -398,6 +505,53 @@ def qs_time(x, noise, what: str, n: int):
     return errs[0], errs[1], *t
 
 
+def sharded_vs_single(r5, image, device: str = "cuda") -> None:
+    """Config 5's sharded run against the single-device path on the card:
+    SLIC on the same normalised image (partitions >= 99.5%), and every
+    feature column of the mosaic against single-device ``create_objects``
+    on the mosaic's own labels."""
+    from obia_tpu_torch.ops.slic import slic_dense
+    from obia_tpu_torch.segmentation.segment_boundaries import (
+        SegmentLayer, _normalize_select)
+    from obia_tpu_torch.segmentation.segment_statistics import create_objects
+    norm = _normalize_select(image.device_tensor(device),
+                             list(range(image.img_data.shape[2])))
+    single, k_single = slic_dense(norm, n_segments=N_SEGMENTS,
+                                  compactness=10.0, convert2lab=False)
+    single = single.cpu().numpy()
+    agree = partition_agreement(r5.label_raster, single)
+    same = float((r5.label_raster == single).mean())
+    log(f"sharded vs single-device SLIC: {len(r5.table)} vs {k_single} "
+        f"objects; labels equal on {same:.6f} of the pixels, partitions on "
+        f"{agree:.6f}")
+    if agree < 0.995:
+        raise AssertionError(f"sharded/single partition agreement {agree}")
+    lay = r5.layer
+    plain = SegmentLayer(len(lay), lay.geometry, lay.crs, lay.transform,
+                         lay.affine_transformation, lay.label_raster,
+                         lay.labels_dev)
+    want = create_objects(plain, image)
+    worst = ("", 0.0)
+    for c in want.columns:
+        a, b = r5.table[c], want[c]
+        if not np.array_equal(np.isnan(a), np.isnan(b)):
+            raise AssertionError(f"column {c}: NaN slots differ")
+        if np.isnan(b).all():
+            continue  # the point-cloud slots: NaN by design
+        # skewness and kurtosis are ratios of cancelling float32 sums whose
+        # atomics add in no fixed order: two single-device runs on the card
+        # differ by up to 1.1e-4, and sharding adds another order
+        atol = 2e-3 if c.endswith(("skewness", "kurtosis")) else 1e-5
+        excess = np.nanmax(np.abs(a - b) / (atol + 2e-4 * np.abs(b)))
+        if excess > worst[1]:
+            worst = (c, float(excess))
+        if not excess <= 1.0:
+            raise AssertionError(f"column {c}: sharded and single-device "
+                                 f"features differ")
+    log(f"  sharded vs single-device features: worst |diff| / (atol + "
+        f"2e-4 |value|) {worst[1]:.3e} ({worst[0]})")
+
+
 def profiled(run, image, what: str):
     """``run`` on the card with the telemetry on (the device synced at every
     stage); logs every stage and returns what ``run`` returns."""
@@ -556,6 +710,68 @@ def main() -> None:
     cross_check(run_config2, build_scene(h=QS_CROSS_SIZE, w=QS_CROSS_SIZE),
                 f"config 2 {QS_CROSS_SIZE}^2")
 
+    # -- 9. the seam-spanner histogram kernel vs its twin, edge cases ------
+    from obia_tpu_torch.parallel import mesh as pmesh
+    cmesh = pmesh.make_mesh(C5_SHARDS, ["cuda"])
+    himg, hlab, hK = seam_scene()
+    hist_err = 0
+    for levels in (16, 256):
+        for band in range(himg.shape[2]):
+            hist_err = max(hist_err, compare_hist(hist_calls(
+                cmesh, pmesh.shard_raster(cmesh, himg)[0],
+                pmesh.shard_raster(cmesh, hlab, fill=-1)[0], hK, levels,
+                band), f"edge-case sharded scene, L={levels}, band {band}"))
+
+    # -- 10. config 5 at its real size on a 2 x 4 mesh on the card ---------
+    from obia_tpu_torch.parallel.sharded import count_shard_spanning
+    image5 = as_image(build_scene(h=C5_SIZE, w=C5_SIZE))
+    mp5 = C5_SIZE * C5_SIZE / 1e6
+    r5_cold, _, cold5 = run_config5(image5, "cuda")
+    glcm_kernel.launches = 0
+    glcm_kernel.hist_launches = 0
+    r5, _, warm5 = run_config5(image5, "cuda")
+    sums5, hist5 = glcm_kernel.launches, glcm_kernel.hist_launches
+    n5 = len(r5.table)
+    lab5 = r5.layer.shards
+    n_span, _ = count_shard_spanning(lab5.mesh, lab5, n5)
+    img5_sh = pmesh.shard_raster(lab5.mesh, image5.device_tensor("cuda"))[0]
+    calls5 = hist_calls(lab5.mesh, img5_sh, lab5, n5, 256, 0)
+    same5 = np.array_equal(r5_cold.label_raster, r5.label_raster)
+    log(f"cold and warm label rasters identical: {same5}")
+    log(f"config 5 {C5_SIZE}^2 RGB on a {lab5.mesh.ty} x {lab5.mesh.tx} "
+        f"mesh: {n5} objects, {n_span} seam spanners on "
+        f"{len(calls5)} shards, cold {cold5:.3f} s, warm {warm5:.3f} s, "
+        f"{mp5 / warm5:.3f} MP/s warm; launches glcm_sums {sums5}, "
+        f"glcm_hist {hist5}")
+    if sums5 < C5_SHARDS * 3 or hist5 < len(calls5) * 3 or n_span < 1:
+        raise AssertionError(f"config-5 run missed a kernel: glcm_sums "
+                             f"{sums5}, glcm_hist {hist5}")
+    for c in r5.table.columns:
+        if c.startswith("b") and np.isnan(r5.table[c]).all():
+            raise AssertionError(f"column {c} is all NaN")
+    if np.isnan(r5.table["b0_mean"]).any() or len(r5.table.geometry) != n5:
+        raise AssertionError("NaN means or missing geometry in config 5")
+    profiled(run_config5, image5, "config 5 profiled warm run")
+    hist_err = max(hist_err, compare_hist(
+        calls5, f"config 5 {C5_SIZE}^2 band 0"))
+    before = glcm_kernel.hist_launches
+    h_ms = time_ms(lambda: [glcm_kernel.glcm_hist(*a) for _, a in calls5],
+                   10)
+    h_plain = time_ms(lambda: [glcm_kernel.glcm_hist_reference(*a)
+                               for _, a in calls5], 3)
+    glcm_kernel.hist_launches = before
+    log(f"GLCM histogram, one band of config 5 ({len(calls5)} launches, "
+        f"{sum(a[3].numel() for _, a in calls5)} spanner tables): kernel "
+        f"{h_ms:.3f} ms, plain torch {h_plain:.3f} ms ({card})")
+
+    # -- 11. sharded vs single-device on the card --------------------------
+    sharded_vs_single(r5, image5)
+    del r5, r5_cold, calls5, img5_sh
+
+    # -- 12. config-5 cross-check against the CPU plain path --------------
+    cross_check(run_config5, build_scene(h=C5_CROSS_SIZE, w=C5_CROSS_SIZE),
+                f"config 5 {C5_CROSS_SIZE}^2")
+
     log(card_line())
     log(json.dumps({"kernels": [
         {"name": "glcm_sums", "route": "cuda",
@@ -572,7 +788,12 @@ def main() -> None:
          "source": "obia_tpu_torch/csrc/quickshift.cu",
          "replaces": "obia_tpu/ops/quickshift_pallas.py:144",
          "launches": qs_launches["qs_parent"], "max_abs_err": qs_err[1],
-         "ms": qp_ms, "plain_ms": qp_plain}]}))
+         "ms": qp_ms, "plain_ms": qp_plain},
+        {"name": "glcm_hist", "route": "cuda",
+         "source": "obia_tpu_torch/csrc/glcm.cu",
+         "replaces": "obia_tpu/ops/glcm_pallas.py:258",
+         "launches": hist5, "max_abs_err": float(hist_err), "ms": h_ms,
+         "plain_ms": h_plain}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -113,6 +113,9 @@ def load() -> ctypes.CDLL:
             lib.obia_glcm_sums.argtypes = [p, p, ll, ll, ll, p, p, p, ll, i,
                                            ctypes.POINTER(i), i, p, p, p]
             lib.obia_glcm_sums.restype = i
+            lib.obia_glcm_hist.argtypes = [p, p, ll, ll, ll, p, p, p, p, ll,
+                                           ll, i, ctypes.POINTER(i), i, p, p]
+            lib.obia_glcm_hist.restype = i
             f = ctypes.c_float
             lib.obia_qs_density.argtypes = [p, i, ll, ll, i, i, f, p, p]
             lib.obia_qs_density.restype = i

@@ -26,6 +26,19 @@
 // atomics on that table and the |d| histogram carry the pixel work. Making it
 // fast (several objects per block, a table sized to the object's level range)
 // is later work.
+//
+// glcm_hist_kernel replaces obia_tpu/ops/glcm_pallas.py::_hist_kernel
+// (launched by _glcm_hist_call): for the few objects that span a shard seam,
+// the full directed co-occurrence table, which the sharded GLCM sums over the
+// shards before it squares it. On the TPU a segment's jobs accumulate the
+// (256, A*256) table in VMEM and the last job DMAs it to the segment's slot.
+// Here one block per (slot, angle) walks the slot's box of centre pixels and
+// adds one per pair with atomicAdd to a zeroed (M, L, A*L) int32 table in
+// global memory: a 256 x 256 int32 table is 256 KB, more than the 227 KB a
+// block can use, so shared memory cannot hold it. The output starts at zero,
+// so no slot holds undefined bytes. What bounds it: global atomics, one per
+// pair, spread over a 256 KB slab per block; at a few hundred seam spanners
+// of a 4096^2 scene the pairs number a few million per band.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -183,5 +196,75 @@ extern "C" int obia_glcm_sums(const void* labels, const void* band,
         (const int32_t*)labels, (const float*)band, H, W, pix_stride,
         (const int32_t*)bbox, (const float*)mn, (const float*)inv, K, levels,
         offs, (long long*)isums, (double*)hsum);
+    return (int)cudaGetLastError();
+}
+
+#define HIST_THREADS 256
+
+__global__ void __launch_bounds__(HIST_THREADS)
+glcm_hist_kernel(const int32_t* __restrict__ labels,
+                 const float* __restrict__ band, long long H, long long W,
+                 long long pix_stride, const int32_t* __restrict__ objs,
+                 const int32_t* __restrict__ bbox,
+                 const float* __restrict__ mn_k,
+                 const float* __restrict__ inv_k, long long n_objects,
+                 int levels, GlcmOffsets offs, int n_angles,
+                 int* __restrict__ out) {
+    const long long m = blockIdx.x;
+    const int a = blockIdx.y;
+    // the box, clipped to the raster so no centre read leaves it
+    const int r0 = max(bbox[4 * m], 0);
+    const int r1 = min(bbox[4 * m + 1], (int)H - 1);
+    const int c0 = max(bbox[4 * m + 2], 0);
+    const int c1 = min(bbox[4 * m + 3], (int)W - 1);
+    const int32_t lab = objs[m];
+    // no centre pixel on this block, or no such object
+    if (r0 > r1 || c0 > c1 || lab < 0 || lab >= n_objects) return;
+    const int L = levels;
+    const long long row = (long long)n_angles * L;
+    int* slab = out + m * L * row + (long long)a * L;  // [q1 * row + q2]
+    const int dr = offs.dr[a], dc = offs.dc[a];
+    const float mn = mn_k[lab], inv = inv_k[lab];
+    const long long nc = (long long)(c1 - c0 + 1);
+    const long long npx = (long long)(r1 - r0 + 1) * nc;
+    for (long long t = threadIdx.x; t < npx; t += HIST_THREADS) {
+        const long long r = r0 + t / nc, c = c0 + t % nc;
+        const long long rn = r + dr, cn = c + dc;
+        if (rn < 0 || rn >= H || cn < 0 || cn >= W) continue;
+        const long long p = r * W + c, pn = rn * W + cn;
+        if (labels[p] != lab || labels[pn] != lab) continue;
+        const int q1 = glcm_quantise(band[p * pix_stride], mn, inv, L);
+        const int q2 = glcm_quantise(band[pn * pix_stride], mn, inv, L);
+        atomicAdd(&slab[(long long)q1 * row + q2], 1);
+    }
+}
+
+// Launches glcm_hist_kernel on `stream` and returns cudaGetLastError().
+// labels, band, pix_stride, mn, inv (n_objects,), levels, offsets: as
+// obia_glcm_sums. objs: (M,) int32 object ids; bbox: (M, 4) int32 boxes of
+// the centre pixels to visit per slot. out: (M, levels, n_angles * levels)
+// int32, zeroed by the caller; entry [m, i, a * levels + j] counts the pairs
+// at offset a of object objs[m] with centre level i and neighbour level j;
+// a slot whose id is outside 0..n_objects-1 stays zero.
+extern "C" int obia_glcm_hist(const void* labels, const void* band,
+                              long long H, long long W, long long pix_stride,
+                              const void* objs, const void* bbox,
+                              const void* mn, const void* inv, long long M,
+                              long long n_objects, int levels,
+                              const int* offsets, int n_angles, void* out,
+                              void* stream) {
+    if (n_angles < 1 || n_angles > GLCM_MAX_ANGLES || levels < 1 ||
+        levels > 256 || M < 1 || n_objects < 1)
+        return (int)cudaErrorInvalidValue;
+    GlcmOffsets offs;
+    for (int a = 0; a < GLCM_MAX_ANGLES; ++a) {
+        offs.dr[a] = a < n_angles ? offsets[2 * a] : 0;
+        offs.dc[a] = a < n_angles ? offsets[2 * a + 1] : 0;
+    }
+    dim3 grid((unsigned int)M, (unsigned int)n_angles);
+    glcm_hist_kernel<<<grid, HIST_THREADS, 0, (cudaStream_t)stream>>>(
+        (const int32_t*)labels, (const float*)band, H, W, pix_stride,
+        (const int32_t*)objs, (const int32_t*)bbox, (const float*)mn,
+        (const float*)inv, n_objects, levels, offs, n_angles, (int*)out);
     return (int)cudaGetLastError();
 }

@@ -55,10 +55,13 @@ def _check_levels(levels: int) -> int:
 
 
 def bbox_minmax(image: torch.Tensor, labels: torch.Tensor,
-                num_segments: int, band_ids: Sequence[int]) -> torch.Tensor:
+                num_segments: int, band_ids: Sequence[int],
+                origin: Tuple[int, int] = (0, 0)) -> torch.Tensor:
     """(K, 4 + 2B) float32 per-object minima of [r, -r, c, -c, v_b, -v_b,
     ...] for each band b in ``band_ids``: bounding boxes and quantiser bounds
-    in one pass. Explicit f32 throughout; an empty object keeps the f32
+    in one pass. Rows and columns are global: the block's first pixel is
+    ``origin``, so the minima of a sharded raster's blocks reduce with a
+    plain minimum. Explicit f32 throughout; an empty object keeps the f32
     maximum in every column."""
     H, W = labels.shape
     K = num_segments
@@ -66,10 +69,10 @@ def bbox_minmax(image: torch.Tensor, labels: torch.Tensor,
     ok = lab >= 0
     seg = torch.where(ok, lab, K)
     dev = labels.device
-    r = torch.arange(H, dtype=torch.float32, device=dev)[:, None].expand(
-        H, W).reshape(-1)
-    c = torch.arange(W, dtype=torch.float32, device=dev)[None, :].expand(
-        H, W).reshape(-1)
+    r = (torch.arange(H, device=dev) + origin[0]).to(torch.float32)[
+        :, None].expand(H, W).reshape(-1)
+    c = (torch.arange(W, device=dev) + origin[1]).to(torch.float32)[
+        None, :].expand(H, W).reshape(-1)
     rows = [r, -r, c, -c]
     for b in band_ids:
         v = image[..., b].reshape(-1).to(torch.float32)

@@ -48,17 +48,31 @@ def initial_centers(img: torch.Tensor, gh: int, gw: int,
                     half: Optional[int] = None) -> torch.Tensor:
     """Grid-seeded centres (gh, gw, C+2): features + (y, x)."""
     H, W, C = img.shape
+    cy0, cx0, cyi, cxi = seed_positions(H, W, gh, gw, step, half, img.device)
+    return centers_from_seeds(img[cyi][:, cxi], cy0, cx0)
+
+
+def seed_positions(H: int, W: int, gh: int, gw: int,
+                   step: Optional[int] = None, half: Optional[int] = None,
+                   device=None):
+    """Seed coordinates (cy0 (gh,), cx0 (gw,) float32) and the pixel rows
+    and columns (cyi, cxi) whose features seed the centres."""
     si = step if step else max(1, round((H / gh + W / gw) / 2.0))
     if half is None:
         half = si // 2
-    dev = img.device
     cy0 = torch.clamp(half + torch.arange(gh, dtype=torch.float32,
-                                          device=dev) * si, max=H - 1.0)
+                                          device=device) * si, max=H - 1.0)
     cx0 = torch.clamp(half + torch.arange(gw, dtype=torch.float32,
-                                          device=dev) * si, max=W - 1.0)
+                                          device=device) * si, max=W - 1.0)
     cyi = torch.clamp(torch.round(cy0), 0, H - 1).long()
     cxi = torch.clamp(torch.round(cx0), 0, W - 1).long()
-    feat0 = img[cyi][:, cxi]
+    return cy0, cx0, cyi, cxi
+
+
+def centers_from_seeds(feat0: torch.Tensor, cy0: torch.Tensor,
+                       cx0: torch.Tensor) -> torch.Tensor:
+    """(gh, gw, C) seed features + seed coordinates -> (gh, gw, C+2)."""
+    gh, gw = feat0.shape[:2]
     return torch.cat([feat0, cy0[:, None, None].expand(gh, gw, 1),
                       cx0[None, :, None].expand(gh, gw, 1)], dim=-1)
 
@@ -68,26 +82,40 @@ def _plane(grid2d: torch.Tensor, ri: torch.Tensor, ci: torch.Tensor):
     return grid2d.index_select(0, ri).index_select(1, ci)
 
 
+def _block_coords(h: int, w: int, origin: Tuple[int, int], device):
+    """Global row and column coordinates of an (h, w) block at ``origin``:
+    int64 (h,), (w,) and float32 (h, w) planes."""
+    rows = torch.arange(h, device=device) + origin[0]
+    cols = torch.arange(w, device=device) + origin[1]
+    yy = rows.to(torch.float32)[:, None].expand(h, w)
+    xx = cols.to(torch.float32)[None, :].expand(h, w)
+    return rows, cols, yy, xx
+
+
 def slic_assign_block(img: torch.Tensor, valid: torch.Tensor,
                       centers: torch.Tensor, gh: int, gw: int, ratio: float,
                       inv_max_dc: Optional[torch.Tensor] = None,
                       step: float = 1.0,
-                      spacing: Optional[Tuple[float, float]] = None
+                      spacing: Optional[Tuple[float, float]] = None,
+                      origin: Tuple[int, int] = (0, 0),
+                      full_hw: Optional[Tuple[int, int]] = None
                       ) -> torch.Tensor:
-    """Assignment step: (H, W) int64 labels in [0, gh*gw), -1 where not
-    valid."""
-    H, W, C = img.shape
+    """Assignment step for an (h, w) block whose first pixel is the global
+    pixel ``origin`` of an image of ``full_hw`` (default: the block is the
+    image): (h, w) int64 labels in [0, gh*gw), -1 where not valid. The
+    centres are the full replicated grid, so a block needs no halo."""
+    h, w, C = img.shape
+    H, W = full_hw if full_hw is not None else (h, w)
     dev = img.device
-    yy = torch.arange(H, dtype=torch.float32, device=dev)[:, None].expand(H, W)
-    xx = torch.arange(W, dtype=torch.float32, device=dev)[None, :].expand(H, W)
-    row_cell = torch.clamp(torch.arange(H, device=dev) * gh // H, 0, gh - 1)
-    col_cell = torch.clamp(torch.arange(W, device=dev) * gw // W, 0, gw - 1)
-    best_d = torch.full((H, W), float("inf"), dtype=torch.float32, device=dev)
-    best_k = torch.full((H, W), -1, dtype=torch.int64, device=dev)
+    rows, cols, yy, xx = _block_coords(h, w, origin, dev)
+    row_cell = torch.clamp(rows * gh // H, 0, gh - 1)
+    col_cell = torch.clamp(cols * gw // W, 0, gw - 1)
+    best_d = torch.full((h, w), float("inf"), dtype=torch.float32, device=dev)
+    best_k = torch.full((h, w), -1, dtype=torch.int64, device=dev)
     for di, dj in _OFFSETS9:
         ri = torch.clamp(row_cell + di, 0, gh - 1)
         ci = torch.clamp(col_cell + dj, 0, gw - 1)
-        d_color = torch.zeros((H, W), dtype=torch.float32, device=dev)
+        d_color = torch.zeros((h, w), dtype=torch.float32, device=dev)
         for c in range(C):
             d_color = d_color + (img[..., c] - _plane(centers[..., c], ri,
                                                       ci)) ** 2
@@ -110,12 +138,13 @@ def slic_assign_block(img: torch.Tensor, valid: torch.Tensor,
     return torch.where(valid, best_k, -1)
 
 
-def slic_update_sums(img: torch.Tensor, labels: torch.Tensor, K: int):
-    """Centre-update sums: ((K, C+2) feature + position sums, (K,) counts)."""
-    H, W, C = img.shape
-    dev = img.device
-    yy = torch.arange(H, dtype=torch.float32, device=dev)[:, None].expand(H, W)
-    xx = torch.arange(W, dtype=torch.float32, device=dev)[None, :].expand(H, W)
+def slic_update_sums64(img: torch.Tensor, labels: torch.Tensor, K: int,
+                       origin: Tuple[int, int] = (0, 0)) -> torch.Tensor:
+    """(K, C+3) float64 centre-update sums of a block at ``origin``:
+    feature and position sums, then the count. A sharded run adds the
+    blocks' sums before rounding them once."""
+    h, w, C = img.shape
+    _, _, yy, xx = _block_coords(h, w, origin, img.device)
     lab = labels.reshape(-1)
     ok = lab >= 0
     wpx = ok.to(torch.float32)
@@ -124,9 +153,28 @@ def slic_update_sums(img: torch.Tensor, labels: torch.Tensor, K: int):
     # float64 accumulation, rounded once: the sums no longer depend on the
     # order the device's atomics add in, so the card and the CPU find the
     # same centres (float32 atomics moved ~2% of 512^2 labels)
-    out = segment_sum(torch.cat([rows, wpx[:, None]], dim=1).double(),
-                      torch.where(ok, lab, 0), K).float()
+    return segment_sum(torch.cat([rows, wpx[:, None]], dim=1).double(),
+                       torch.where(ok, lab, 0), K)
+
+
+def slic_update_sums(img: torch.Tensor, labels: torch.Tensor, K: int,
+                     origin: Tuple[int, int] = (0, 0)):
+    """Centre-update sums of a block at ``origin``: ((K, C+2) feature +
+    position sums, (K,) counts)."""
+    C = img.shape[2]
+    out = slic_update_sums64(img, labels, K, origin).float()
     return out[:, :C + 2], out[:, C + 2]
+
+
+def update_centers(sums: torch.Tensor, cnts: torch.Tensor,
+                   centers: torch.Tensor) -> torch.Tensor:
+    """New (gh, gw, C+2) centres: the means, or the old centre of a
+    cluster that lost every pixel."""
+    gh, gw, F = centers.shape
+    means = sums / torch.clamp(cnts, min=1.0)[:, None]
+    means = torch.where((cnts > 0)[:, None], means,
+                        centers.reshape(gh * gw, F))
+    return means.reshape(gh, gw, F)
 
 
 def _slic_iterate(img: torch.Tensor, valid: torch.Tensor, gh: int, gw: int,
@@ -150,11 +198,7 @@ def _slic_iterate(img: torch.Tensor, valid: torch.Tensor, gh: int, gw: int,
                                  spacing=spacing)
 
     def update(labels, centers):
-        sums, cnts = slic_update_sums(img, labels, K)
-        means = sums / torch.clamp(cnts, min=1.0)[:, None]
-        means = torch.where((cnts > 0)[:, None], means,
-                            centers.reshape(K, C + 2))
-        return means.reshape(gh, gw, C + 2)
+        return update_centers(*slic_update_sums(img, labels, K), centers)
 
     if not slic_zero:
         for _ in range(max_num_iter):

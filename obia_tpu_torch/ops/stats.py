@@ -2,7 +2,9 @@
 
 One pass over the label raster accumulates counts and sums, a second the
 centred 2nd/3rd/4th powers (two-pass centring keeps float32 accurate), and
-``scatter_reduce`` gives min and max. Definitions are scipy's defaults:
+``scatter_reduce`` gives min and max. The passes are separate functions so
+that the sharded path (``parallel/sharded.py``) can reduce each one over
+the mesh before the next. Definitions are scipy's defaults:
 variance is biased (ddof=0), skewness the Fisher-Pearson g1 and kurtosis the
 Fisher excess g2, both with bias=True. An empty object gets NaN everywhere;
 an object with zero variance gets NaN skewness and kurtosis.
@@ -60,34 +62,61 @@ def segment_spectral_moments(image: torch.Tensor, labels: torch.Tensor,
                              valid: Optional[torch.Tensor] = None):
     """{stat: (K, C)} for an (H, W, C) float32 image and (H, W) labels in
     [0, K) (negative = outside every object)."""
-    H, W, C = image.shape
     K = int(num_segments)
+    pix = moment_pixels(image, labels, K, valid)
+    s1c = moment_pass1(pix, K)
+    cnt1 = s1c[:, 0]
+    s1 = s1c[:, 1:]
+    mean = s1 / torch.clamp(cnt1[:, None], min=1.0)
+    p2 = moment_pass2(pix, mean, K)
+    xmin, xmax = moment_minmax(pix, K)
+    return _moments_finalize(cnt1, s1, p2, xmin, xmax, image.shape[2])
+
+
+def moment_pixels(image: torch.Tensor, labels: torch.Tensor, K: int,
+                  valid: Optional[torch.Tensor] = None):
+    """The per-pixel inputs of the moment passes: (x (N, C) float32, lab
+    (N,) int64, seg (N,) int64 with K where no object owns the pixel, okf
+    (N,) float32 0/1)."""
+    C = image.shape[-1]
     x = image.reshape(-1, C).to(torch.float32)
     lab = labels.reshape(-1).long()
     ok = lab >= 0
     if valid is not None:
         ok = ok & valid.reshape(-1)
     seg = torch.where(ok, lab, K)       # row K collects what no object owns
-    okf = ok.to(x.dtype)
+    return x, lab, seg, ok.to(x.dtype)
 
-    s1c = segment_sum(torch.cat([okf[:, None], x * okf[:, None]], dim=1),
-                      seg, K + 1)[:K]
-    cnt1 = s1c[:, 0]
-    s1 = s1c[:, 1:]
-    mean = s1 / torch.clamp(cnt1[:, None], min=1.0)
 
+def moment_pass1(pix, K: int) -> torch.Tensor:
+    """(K, 1+C): [count | sum x per channel] (reference ``_moment_pass1``)."""
+    x, _, seg, okf = pix
+    return segment_sum(torch.cat([okf[:, None], x * okf[:, None]], dim=1),
+                       seg, K + 1)[:K]
+
+
+def moment_pass2(pix, mean: torch.Tensor, K: int) -> torch.Tensor:
+    """(K, 3C) centred 2nd/3rd/4th power sums about the objects' means
+    (reference ``_moment_pass2``)."""
+    x, lab, seg, okf = pix
     d = (x - mean[lab.clamp(0, max(K - 1, 0))]) * okf[:, None]
     d2 = d * d
-    p2 = segment_sum(torch.cat([d2, d2 * d, d2 * d2], dim=1), seg,
-                     K + 1)[:K]
+    return segment_sum(torch.cat([d2, d2 * d, d2 * d2], dim=1), seg,
+                       K + 1)[:K]
 
+
+def moment_minmax(pix, K: int):
+    """((K, C) min, (K, C) max); an empty object keeps +/- the float32
+    maximum (reference ``_moment_minmax``)."""
+    x, _, seg, _ = pix
+    C = x.shape[1]
     big = torch.finfo(torch.float32).max
     idx = seg[:, None].expand(-1, C)
     xmin = torch.full((K + 1, C), big, dtype=x.dtype, device=x.device)
     xmin.scatter_reduce_(0, idx, x, "amin")
     xmax = torch.full((K + 1, C), -big, dtype=x.dtype, device=x.device)
     xmax.scatter_reduce_(0, idx, x, "amax")
-    return _moments_finalize(cnt1, s1, p2, xmin[:K], xmax[:K], C)
+    return xmin[:K], xmax[:K]
 
 
 def spectral_moments_packed(image: torch.Tensor, labels: torch.Tensor,

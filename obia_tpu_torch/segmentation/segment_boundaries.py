@@ -47,10 +47,13 @@ def _normalize_select(dev: torch.Tensor, bands: Sequence[int]
 class SegmentLayer:
     """The polygon layer: segment ids 1..K (row k holds label k - 1), one
     geometry per segment, the CRS and transform, and the label raster on
-    the host (row-wise runs, decoded on demand) and on the device."""
+    the host (row-wise runs, decoded on demand) and on the device. A layer
+    from the mosaic also keeps the labels in their mesh blocks (``shards``,
+    a :class:`obia_tpu_torch.parallel.mesh.ShardedRaster`), and its
+    features are then reduced over the mesh."""
 
     def __init__(self, n: int, geometry, crs, transform, affine,
-                 label_raster, labels_dev: torch.Tensor):
+                 label_raster, labels_dev: torch.Tensor, shards=None):
         self.n = int(n)
         self._geometry = geometry  # list, or a Future of one
         self.crs = crs
@@ -58,6 +61,7 @@ class SegmentLayer:
         self.affine_transformation = affine
         self.label_raster = label_raster
         self.labels_dev = labels_dev
+        self.shards = shards
 
     def __len__(self) -> int:
         return self.n
@@ -116,7 +120,7 @@ def create_segments(image, segmentation_bands=None, method: str = "slic",
     thread (the native tracer releases the GIL) and ``geometry`` joins it.
     """
     from ..ops.connectivity import ccl_dense_labels
-    from ..ops.slic import LazyRLERaster, download_labels_rle, slic_dense
+    from ..ops.slic import slic_dense
 
     if method == "slic":
         unknown = set(kwargs) - _SLIC_KWARGS
@@ -158,15 +162,28 @@ def create_segments(image, segmentation_bands=None, method: str = "slic",
             if not enforce:
                 # one label per connected region, without the merge
                 labels, n_labels = ccl_dense_labels(labels)
-    with telemetry.stage("segment.download"):
+    return layer_from_labels(labels, n_labels, image, "segment",
+                             _async_polygonize)
+
+
+def layer_from_labels(labels: torch.Tensor, n_labels: int, image,
+                      stage: str, async_polygonize: bool = False,
+                      shards=None) -> SegmentLayer:
+    """Download dense (H, W) labels as row-wise runs, polygonise them (in a
+    background thread with ``async_polygonize``) and wrap the result in a
+    :class:`SegmentLayer`; ``stage`` prefixes the telemetry stages."""
+    from ..ops.slic import LazyRLERaster, download_labels_rle
+
+    mp = labels.shape[0] * labels.shape[1] / 1e6
+    with telemetry.stage(f"{stage}.download"):
         label_raster = LazyRLERaster(*download_labels_rle(labels))
 
     def polygonize():
-        with telemetry.stage("segment.polygonize", mp, host_only=True):
+        with telemetry.stage(f"{stage}.polygonize", mp, host_only=True):
             return _polygonize(label_raster, n_labels,
                                image.affine_transformation)
 
-    if _async_polygonize:
+    if async_polygonize:
         ex = ThreadPoolExecutor(max_workers=1)
         geometry = ex.submit(polygonize)
         ex.shutdown(wait=False)
@@ -174,4 +191,5 @@ def create_segments(image, segmentation_bands=None, method: str = "slic",
         geometry = polygonize()
     crs = CRS.from_user_input(image.crs) if image.crs is not None else None
     return SegmentLayer(n_labels, geometry, crs, image.transform,
-                        image.affine_transformation, label_raster, labels)
+                        image.affine_transformation, label_raster, labels,
+                        shards=shards)

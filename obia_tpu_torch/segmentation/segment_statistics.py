@@ -87,9 +87,16 @@ def create_objects(segments: SegmentLayer, image, spectral_bands=None,
     """Per-object features of ``segments`` over ``image``, on the device
     that holds ``segments.labels_dev``. Spectral stats run whenever
     ``spectral_bands`` is non-empty (the reference ignores
-    ``calculate_spectral``); columns of a family that is off stay NaN."""
+    ``calculate_spectral``); columns of a family that is off stay NaN.
+
+    A layer from the mosaic (``segments.shards`` set) takes both families
+    from the sharded reductions over its mesh (the JAX package's ``_exec``
+    hook); any other layer from the single-device programs."""
     from ..ops.glcm import DEFAULT_ANGLES, segment_glcm_props_packed
     from ..ops.stats import spectral_moments_packed
+    from ..parallel.glcm_sharded import sharded_glcm_props
+    from ..parallel.mesh import shard_raster
+    from ..parallel.sharded import sharded_spectral_moments
 
     if not (calculate_spectral or calculate_textural):
         raise ValueError("At least one of 'calculate_spectral' or "
@@ -121,10 +128,28 @@ def create_objects(segments: SegmentLayer, image, spectral_bands=None,
     H, W = labels.shape
     mp = H * W / 1e6
     data = {"segment_id": segments.segment_id}
+    shards = segments.shards
+    if shards is not None:
+        mesh = shards.mesh
+        img_sh = shard_raster(mesh, img)[0]
+
+        def spectral():
+            return sharded_spectral_moments(mesh, img_sh, shards, K,
+                                            packed=True)
+
+        def glcm(**kw):
+            return sharded_glcm_props(mesh, img_sh, shards, K, packed=True,
+                                      **kw)
+    else:
+        def spectral():
+            return spectral_moments_packed(img, labels, K)
+
+        def glcm(**kw):
+            return segment_glcm_props_packed(img, labels, K, **kw)
 
     if spectral_bands:
         with telemetry.stage("objects.spectral", mp):
-            names, packed = spectral_moments_packed(img, labels, K)
+            names, packed = spectral()
         sp = dict(zip(names, packed))
         for stat, on in spectral_flags.items():
             if on:
@@ -133,8 +158,8 @@ def create_objects(segments: SegmentLayer, image, spectral_bands=None,
 
     if calculate_textural and textural_bands:
         with telemetry.stage("objects.glcm", mp):
-            names, packed = segment_glcm_props_packed(
-                img, labels, K, levels=int(glcm_levels),
+            names, packed = glcm(
+                levels=int(glcm_levels),
                 distance=int(glcm_distance),
                 angles=(tuple(glcm_angles) if glcm_angles is not None
                         else DEFAULT_ANGLES),

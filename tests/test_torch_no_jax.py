@@ -1,7 +1,7 @@
 """obia_tpu_torch runs with jax, pandas, sklearn and PIL unavailable, as on
 a machine that has only torch, numpy and scipy: the port imports none of
-them on its main paths (SLIC + forest, quickshift + MLP), and never loads
-jax, flax or optax."""
+them on its main paths (SLIC + forest, quickshift + MLP, the sharded mosaic
+on a 2 x 4 CPU mesh), and never loads jax, flax or optax."""
 import subprocess
 import sys
 import textwrap
@@ -61,9 +61,16 @@ SCRIPT = textwrap.dedent("""
     clf = TorchMLPClassifier(hidden_layer_sizes=(8,), max_iter=3)
     clf.fit(Xq, Xq[:, 0] > np.median(Xq[:, 0]))
     assert np.allclose(clf.predict_proba(Xq).sum(1), 1.0, atol=1e-5)
+
+    from obia_tpu_torch.parallel.mesh import make_mesh
+    from obia_tpu_torch.parallel.mosaic import mosaic_pipeline
+    tm = mosaic_pipeline(image, n_segments=12, mesh=make_mesh(8, ["cpu"]),
+                         objects_kwargs={"glcm_levels": 32})
+    assert len(tm) > 3 and len(tm.geometry) == len(tm)
+    assert np.isfinite(tm["b0_mean"]).all()
     for mod in BLOCKED:
         assert mod not in sys.modules, mod
-    print("NO_JAX_OK", len(t), f, len(tq))
+    print("NO_JAX_OK", len(t), f, len(tq), len(tm))
 """)
 
 
