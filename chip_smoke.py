@@ -7,9 +7,14 @@ Phases, in order; any failure raises and exits non-zero:
 
 1. require a CUDA device and print its name and power limit (nvidia-smi);
 2. build the CUDA kernels from ``obia_tpu_torch/csrc`` with nvcc, one
-   process per source, all started together;
-3. hold the GLCM kernel against its plain-torch twin on an edge-case scene
-   (integer sums and sum (C+C^T)^2 equal, sum 1/(1+d^2) within rtol 1e-6);
+   process per source, all started together, and the port's host library
+   (``obia_tpu_torch/native``: polygoniser, union-find) with g++;
+3. hold the GLCM sums kernel against its plain-torch twin (integer sums and
+   sum (C+C^T)^2 equal, sum 1/(1+d^2) within rtol 1e-6, two runs of the
+   kernel identical) on an edge-case scene, on a scene of many small
+   objects (1-60 px, boxes either side of the kernel's size classes) at
+   L = 1, 2, 16 and 256 with 8 offsets, and on one object covering most of
+   a raster with all 256 levels;
 4. drive the config-4 slice of ``bench.py`` at 4096^2 x 8 bands on the card:
    ``segment`` (SLIC on bands 0/3/6, spectral + GLCM features of all 8
    bands) and a 300-tree forest ``predict_proba``, once cold and once warm,
@@ -32,8 +37,8 @@ Phases, in order; any failure raises and exits non-zero:
    max_iter=60, then ``predict_proba``, once cold (profiled) and once warm,
    with the launch counts read around the warm run; a profiled warm run;
    both quickshift kernels against their twins at 1024^2 and at
-   4096^2, and the GLCM kernel at this slice's object count, all timed with
-   CUDA events;
+   4096^2, and the GLCM sums kernel at this slice's object count, all timed
+   with CUDA events;
 8. cross-check: the config-2 slice at 256^2 on the card and on the CPU:
    object counts within 1%, label partitions agreeing on >= 99.5% of the
    pixels, column means as in phase 5;
@@ -47,7 +52,9 @@ Phases, in order; any failure raises and exits non-zero:
    the launch counts read around the warm run (``glcm_sums`` >= 24,
    ``glcm_hist`` >= 1 per shard with spanners per band); a profiled run for
    the stage split; the histogram kernel against its twin on one band of
-   that scene, both timed with CUDA events;
+   that scene, both timed with CUDA events, and the GLCM sums kernel on
+   one band of that scene (one launch per shard) against its twin, timed
+   the same way;
 11. sharded against single-device on the card, on the same normalised
    image: SLIC labels (convert2lab=False) as partitions agreeing on
    >= 99.5% of the pixels, and every feature column of the mosaic against
@@ -56,14 +63,24 @@ Phases, in order; any failure raises and exits non-zero:
 12. cross-check: config 5 at 768^2 (``bench.py``'s default size for it) on
    the card and on the CPU, as in phase 8.
 
-The last two lines are a JSON object of the kernels' counts, errors and
-times, and ``{"ok": true, "device": {...}}``. The script needs no network,
-JAX, pandas or sklearn (with sklearn importable, the forest is fitted by it;
-without, a seeded numpy forest stands in; the MLP needs neither).
+The last two lines are a JSON object of the kernels' launches, errors,
+times and bounds, and ``{"ok": true, "device": {...}}``. A kernel's
+``bound_ms`` is the larger of the bytes it must move (each input read once,
+each output written once; a band counts its own 4 bytes a pixel) over
+3.35 TB/s and its operations over 67 TFLOP/s (float32, exp counted as one
+operation), from this run's shapes. ``glcm_sums`` also reports
+``bound_ms_layout``: the same with the band charged the 32-byte sectors that
+hold it in the interleaved (H, W, C) image, the least a kernel that reads
+the band in place can take. No one
+PyTorch call computes any of the four, so ``library_ms`` is null. The
+script needs no network, JAX, pandas or sklearn (with sklearn importable,
+the forest is fitted by it; without, a seeded numpy forest stands in; the
+MLP needs neither), and imports nothing of the JAX package.
 """
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -84,10 +101,30 @@ QS_KW = dict(method="quickshift", ratio=1.0, kernel_size=5, max_dist=10.0)
 C5_SIZE = 4096          # bench.py config 5 with OBIA_BENCH5_REAL=1
 C5_CROSS_SIZE = 768     # bench.py's default size for config 5
 C5_SHARDS = 8           # the 2 x 4 mesh
+HBM_BYTES_PER_MS = 3.35e9   # H100 SXM: 3.35 TB/s
+FP32_OPS_PER_MS = 67e9      # H100 SXM: 67 TFLOP/s float32 outside the MMAs
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def build_scene(h=2048, w=2048, c=3, seed=0):
+    """bench.py's synthetic scene (smooth bands plus noise, uint8), copied
+    so the script needs nothing of the repo's JAX side; a CPU test holds the
+    two equal."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w]
+    base = np.stack([
+        np.sin(yy / 97.0) + np.cos(xx / 131.0),
+        np.sin((yy + xx) / 151.0),
+        np.cos(yy / 71.0) * np.sin(xx / 113.0),
+        ((yy // 256 + xx // 256) % 5).astype(np.float32) / 4.0,
+    ], axis=-1)[:, :, :c].astype(np.float32)
+    noise = rng.normal(0, 0.05, (h, w, c)).astype(np.float32)
+    arr = base + noise
+    lo, hi = arr.min(), arr.max()
+    return (255.0 * (arr - lo) / (hi - lo)).astype(np.uint8)
 
 
 def card_line() -> str:
@@ -99,7 +136,6 @@ def card_line() -> str:
 
 def config4_scene(size: int) -> np.ndarray:
     """The config-4 scene exactly as bench.py builds it (8 uint8 bands)."""
-    from bench import build_scene
     base3 = build_scene(h=size, w=size, c=4).astype(np.float32)
     more = np.stack([np.roll(base3[..., i % 4], 17 * (i + 1), axis=i % 2)
                      for i in range(4)], axis=-1)
@@ -107,7 +143,7 @@ def config4_scene(size: int) -> np.ndarray:
 
 
 def as_image(scene: np.ndarray):
-    from obia_tpu.geometry.affine import Affine
+    from obia_tpu_torch.geometry.affine import Affine
     from obia_tpu_torch.handlers.geotif import image_from_array
     h = scene.shape[0]
     return image_from_array(scene, Affine(1.0, 0, 0, 0, -1.0, h),
@@ -258,9 +294,10 @@ def seam_scene():
     return img, lab, int(lab.max()) + 1
 
 
-def hist_calls(mesh, image_sh, labels_sh, K, levels, band):
-    """The (shard, glcm_hist arguments) of every shard with seam spanners,
-    as ``sharded_glcm_sums`` builds them for one band."""
+def shard_calls(mesh, image_sh, labels_sh, K, levels, band):
+    """The glcm_sums arguments of every shard and the (shard, glcm_hist
+    arguments) of every shard with seam spanners, as ``sharded_glcm_sums``
+    builds them for one band."""
     from obia_tpu_torch.ops import glcm
     from obia_tpu_torch.parallel import glcm_sharded as gs
     mins, multi, present = gs.glcm_prepass(mesh, image_sh, labels_sh, K,
@@ -270,10 +307,56 @@ def hist_calls(mesh, image_sh, labels_sh, K, levels, band):
     shards = gs.shard_inputs(mesh, image_sh, labels_sh,
                              glcm._bboxes_from_mins(mins), multi, present, 2)
     offsets = glcm.angle_offsets(2, glcm.DEFAULT_ANGLES)
-    return [(key, (lab_h, img_h, band, objs, boxes, mn, inv, levels,
+    sums = [(lab_h, img_h, band, loc, mn, inv, levels, offsets)
+            for lab_h, img_h, loc, _, _ in shards.values()]
+    hist = [(key, (lab_h, img_h, band, objs, boxes, mn, inv, levels,
                    offsets))
             for key, (lab_h, img_h, _, objs, boxes) in shards.items()
             if objs.numel()]
+    return sums, hist
+
+
+def band_bytes(image, layout: bool = False) -> int:
+    """The bytes of one band of an (H, W, C) float32 image: its own 4 a
+    pixel, or with ``layout`` the 32-byte sectors that hold it in the
+    interleaved image (all of the image for C <= 8)."""
+    H, W, C = image.shape
+    return H * W * (min(4 * C, 32) if layout else 4)
+
+
+def sums_bound_ms(calls, layout: bool = False) -> float:
+    """Least time of glcm_sums over ``calls``: labels, the band (see
+    :func:`band_bytes`), boxes and quantisers read once, (A, K, 7) int64 +
+    (A, K) float64 written once, at 3.35 TB/s (its integer work is far
+    under the bytes)."""
+    total = 0
+    for labels, image, _, boxes, _, _, _, offsets in calls:
+        K, A = boxes.shape[0], len(offsets)
+        total += (4 * labels.numel() + band_bytes(image, layout) + 24 * K
+                  + 64 * A * K)
+    return total / HBM_BYTES_PER_MS
+
+
+def hist_bound_ms(calls) -> float:
+    """Least time of glcm_hist over ``calls``: labels, the band and the
+    slots read once, the (M, L, A*L) int32 tables written once."""
+    total = 0
+    for _, (labels, image, _, objs, _, _, _, levels, offsets) in calls:
+        M = objs.numel()
+        total += (4 * labels.numel() + band_bytes(image) + 20 * M
+                  + 4 * M * levels * len(offsets) * levels)
+    return total / HBM_BYTES_PER_MS
+
+
+def qs_bound_ms(x, radius: int, outputs: int) -> float:
+    """Least time of a quickshift window scan: (2r+1)^2 - 1 neighbours a
+    pixel at 3C + 4 float32 operations each (d2, then the weight or the
+    comparisons) over 67 TFLOP/s, or the image, rho and ``outputs`` planes
+    moved once over 3.35 TB/s, whichever is longer."""
+    C, H, W = x.shape
+    ops = H * W * ((2 * radius + 1) ** 2 - 1) * (3 * C + 4)
+    nbytes = 4 * H * W * (C + 1 + outputs)
+    return max(ops / FP32_OPS_PER_MS, nbytes / HBM_BYTES_PER_MS)
 
 
 def compare_hist(calls, what: str) -> int:
@@ -300,37 +383,127 @@ def compare_hist(calls, what: str) -> int:
     return err
 
 
-def glcm_inputs(image_t, labels, K, band):
+def glcm_inputs(image_t, labels, K, band, levels=256, offsets=None):
     """The kernel's inputs for one band, as segment_glcm_props_packed
-    builds them."""
+    builds them (the four default angles at distance 2 unless
+    ``offsets``)."""
     from obia_tpu_torch.ops import glcm
     mins = glcm.bbox_minmax(image_t, labels, K, (band,))
     mn = mins[:, 4].contiguous()
-    inv = glcm.quant_inv(-mins[:, 5] - mn, 256).contiguous()
-    offsets = glcm.angle_offsets(2, glcm.DEFAULT_ANGLES)
+    inv = glcm.quant_inv(-mins[:, 5] - mn, levels).contiguous()
+    if offsets is None:
+        offsets = glcm.angle_offsets(2, glcm.DEFAULT_ANGLES)
     return (labels, image_t, band, glcm._bboxes_from_mins(mins), mn, inv,
-            256, offsets)
+            levels, offsets)
 
 
 def compare_kernel(args, what: str) -> float:
-    """Kernel vs twin on the same CUDA inputs; returns the max abs error."""
+    """Kernel vs twin on the same CUDA inputs, and two kernel runs against
+    each other; returns the max abs error."""
     import torch
 
     from obia_tpu_torch.ops import glcm_kernel
     before = glcm_kernel.launches
     isums, hsum = glcm_kernel.glcm_sums(*args)
+    isums2, hsum2 = glcm_kernel.glcm_sums(*args)
     ri, rh = glcm_kernel.glcm_sums_reference(*args)
     torch.cuda.synchronize()
+    calls = glcm_kernel.launches - before
     glcm_kernel.launches = before  # comparison launches do not count
-    d_int = int((isums - ri).abs().max())
-    d_h = float((hsum - rh).abs().max())
-    rel_h = float(((hsum - rh).abs() / rh.abs().clamp(min=1e-300)).max())
+    d_int = int((isums - ri).abs().max()) if isums.numel() else 0
+    d_h = float((hsum - rh).abs().max()) if hsum.numel() else 0.0
+    rel_h = (float(((hsum - rh).abs() / rh.abs().clamp(min=1e-300)).max())
+             if hsum.numel() else 0.0)
+    same = torch.equal(isums, isums2) and torch.equal(hsum, hsum2)
     log(f"  {what}: int sums max|diff| = {d_int}, sum 1/(1+d^2) "
         f"max|diff| = {d_h:.3e} (rel {rel_h:.3e}), pairs = "
-        f"{int(isums[..., 0].sum())}")
+        f"{int(isums[..., 0].sum())}; two runs identical: {same}")
     if d_int != 0 or not torch.allclose(hsum, rh, rtol=1e-6, atol=0):
         raise AssertionError(f"GLCM kernel disagrees with its twin ({what})")
+    if not same or calls != 2:
+        raise AssertionError(f"GLCM kernel runs differ or miscount ({what})")
     return max(float(d_int), d_h)
+
+
+def kernel_split(fn, what: str) -> dict:
+    """Device time of each CUDA kernel that one call of ``fn`` starts, from
+    ``torch.profiler`` (us by kernel name); logs it, and logs that the
+    trace held no device time if three traces in a row held none (a trace
+    of a short call can come back empty)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    split = {}
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        for e in prof.key_averages():
+            us = getattr(e, "device_time_total", None)
+            if us is None:
+                us = getattr(e, "cuda_time_total", 0.0)
+            if us > 0:
+                split[e.key] = split.get(e.key, 0.0) + float(us)
+        if split:
+            break
+    if split:
+        log(f"  {what} (torch.profiler, one call): " + ", ".join(
+            f"{k[:40]} {v:.1f} us" for k, v in sorted(
+                split.items(), key=lambda kv: -kv[1])))
+    else:
+        log(f"  {what}: the profiler trace held no device time")
+    return split
+
+
+def small_objects_scene(seed: int = 5):
+    """Many small objects: rectangles of 1-60 px with 10% of the pixels
+    unlabelled, a constant one, and solid objects whose boxes hold 255 and
+    256 px (the small class, up to 224 pairs at an angle) and 257 and 272 px
+    (the large class)."""
+    rng = np.random.default_rng(seed)
+    H, W = 120, 300
+    lab = np.full((H, W), -1, np.int64)
+    lab[2:17, 2:19] = 0            # 15 x 17 = 255 px
+    lab[20:36, 2:18] = 1           # 16 x 16 = 256 px
+    lab[40, 5:262] = 2             # 1 x 257 px
+    lab[44:60, 2:19] = 3           # 16 x 17 = 272 px
+    nxt, r = 4, 62
+    while r < H:                   # rows of random rectangles below them
+        h = int(rng.integers(1, 7))
+        c = 0
+        while c < W:
+            w = int(rng.integers(1, 11))
+            lab[r:r + h, c:c + w] = nxt
+            nxt, c = nxt + 1, c + w
+        r += h
+    for r0 in range(2, 34, 6):     # and beside them
+        for c0 in range(25, W, 9):
+            lab[r0:r0 + int(rng.integers(1, 7)),
+                c0:c0 + int(rng.integers(1, 10))] = nxt
+            nxt += 1
+    lab[(rng.random((H, W)) < 0.1) & (lab > 3)] = -1
+    ids, inv = np.unique(lab, return_inverse=True)
+    lab = (inv.reshape(H, W) - int(ids[0] < 0)).astype(np.int32)
+    img = rng.integers(0, 256, (H, W, 2)).astype(np.float32)
+    img[lab == lab[70, 5]] = 9.0   # a constant object
+    return img, lab, int(lab.max()) + 1
+
+
+def big_object_scene(seed: int = 6):
+    """One object over most of a 300 x 420 raster, values over all 256
+    levels, a ring of unlabelled pixels and a few small objects."""
+    rng = np.random.default_rng(seed)
+    H, W = 300, 420
+    lab = np.zeros((H, W), np.int32)
+    lab[:3] = -1
+    lab[:, -2:] = -1
+    lab[100:104, 200:210] = 1
+    lab[250:251, 20:40] = 2
+    img = rng.uniform(0, 1000, (H, W, 1)).astype(np.float32)
+    return img, lab, 3
+
+
 
 
 def edge_case_scene():
@@ -576,7 +749,7 @@ def main() -> None:
     card = card_line()
     log(f"card: {card}")
     sys.path.insert(0, ROOT)
-    from obia_tpu_torch import _build
+    from obia_tpu_torch import _build, native
     from obia_tpu_torch.classification import forest as tforest
     from obia_tpu_torch.ops import glcm_kernel
     from obia_tpu_torch.ops import quickshift_kernel as qk
@@ -589,8 +762,13 @@ def main() -> None:
     _build.load()
     log(f"build: {lib.relative_to(ROOT)} in {time.perf_counter() - t0:.2f} s"
         f" (nvcc {_build.build_seconds} s)")
+    t0 = time.perf_counter()
+    host_lib = native.build()
+    native.load()
+    log(f"native library built and loaded: {host_lib.relative_to(ROOT)} in "
+        f"{time.perf_counter() - t0:.2f} s (g++)")
 
-    # -- 3. kernel vs twin, edge cases ------------------------------------
+    # -- 3. GLCM sums kernel vs twin: edge cases, small objects, one big ----
     img, lab, K = edge_case_scene()
     img_t = torch.as_tensor(img, device="cuda")
     lab_t = torch.as_tensor(lab, device="cuda")
@@ -598,6 +776,24 @@ def main() -> None:
     for band in range(img.shape[2]):
         err = max(err, compare_kernel(glcm_inputs(img_t, lab_t, K, band),
                                       f"edge-case scene band {band}"))
+    from obia_tpu_torch.ops import glcm as tglcm
+    offsets8 = tglcm.angle_offsets(2, [i * math.pi / 8 for i in range(8)])
+    img, lab, K = small_objects_scene()
+    img_t = torch.as_tensor(img, device="cuda")
+    lab_t = torch.as_tensor(lab, device="cuda")
+    for levels in (1, 2, 16, 256):
+        for band in range(img.shape[2]):
+            err = max(err, compare_kernel(
+                glcm_inputs(img_t, lab_t, K, band, levels, offsets8),
+                f"{K} small objects, L={levels}, 8 offsets, band {band}"))
+    img, lab, K = big_object_scene()
+    img_t = torch.as_tensor(img, device="cuda")
+    lab_t = torch.as_tensor(lab, device="cuda")
+    for levels, offs in ((256, offsets8), (256, None), (16, offsets8)):
+        args = glcm_inputs(img_t, lab_t, K, 0, levels, offs)
+        err = max(err, compare_kernel(
+            args, f"one object over most of the raster, L={levels}, "
+                  f"{len(args[-1])} offsets"))
 
     # -- 4. the config-4 slice at full width --------------------------------
     image = as_image(config4_scene(SIZE))
@@ -633,8 +829,12 @@ def main() -> None:
     ms = time_ms(lambda: glcm_kernel.glcm_sums(*args), 10)
     plain_ms = time_ms(lambda: glcm_kernel.glcm_sums_reference(*args), 3)
     glcm_kernel.launches = before
-    log(f"GLCM one band at {SIZE}^2, K={n_obj}: kernel {ms:.3f} ms, "
-        f"plain torch {plain_ms:.3f} ms ({card})")
+    bound, bound_l = sums_bound_ms([args]), sums_bound_ms([args], True)
+    log(f"GLCM sums one band at {SIZE}^2, K={n_obj}: kernel {ms:.3f} ms, "
+        f"plain torch {plain_ms:.3f} ms, bound {bound:.4f} ms (band in "
+        f"place: {bound_l:.4f} ms) ({card})")
+    kernel_split(lambda: glcm_kernel.glcm_sums(*args), "GLCM sums kernels")
+    glcm_kernel.launches = before
 
     # -- 5. cross-check against the CPU plain path ------------------------
     cross_check(run_slice, config4_scene(CROSS_SIZE), f"config 4 "
@@ -660,7 +860,6 @@ def main() -> None:
                                  f"not raise ({name})")
 
     # -- 7. the config-2 slice at its own size ----------------------------
-    from bench import build_scene
     image2 = as_image(build_scene(h=QS_SIZE, w=QS_SIZE))
     mp2 = QS_SIZE * QS_SIZE / 1e6
     s2_cold, _, cold2 = profiled(run_config2, image2, "cold run")
@@ -698,13 +897,17 @@ def main() -> None:
     del xb, noiseb
     args2 = glcm_inputs(image2.device_tensor("cuda"), s2.layer.labels_dev,
                         n2, 0)
-    compare_kernel(args2, f"config-2 {QS_SIZE}^2 band 0")
+    err = max(err, compare_kernel(args2, f"config-2 {QS_SIZE}^2 band 0"))
     before = glcm_kernel.launches
     g_ms = time_ms(lambda: glcm_kernel.glcm_sums(*args2), 10)
     g_plain = time_ms(lambda: glcm_kernel.glcm_sums_reference(*args2), 3)
     glcm_kernel.launches = before
-    log(f"GLCM one band at {QS_SIZE}^2, K={n2}: kernel {g_ms:.3f} ms, "
-        f"plain torch {g_plain:.3f} ms ({card})")
+    bound2, bound2_l = sums_bound_ms([args2]), sums_bound_ms([args2], True)
+    log(f"GLCM sums one band at {QS_SIZE}^2, K={n2}: kernel {g_ms:.3f} ms, "
+        f"plain torch {g_plain:.3f} ms, bound {bound2:.4f} ms (band in "
+        f"place: {bound2_l:.4f} ms) ({card})")
+    kernel_split(lambda: glcm_kernel.glcm_sums(*args2), "GLCM sums kernels")
+    glcm_kernel.launches = before
 
     # -- 8. config-2 cross-check against the CPU plain path ---------------
     cross_check(run_config2, build_scene(h=QS_CROSS_SIZE, w=QS_CROSS_SIZE),
@@ -717,10 +920,10 @@ def main() -> None:
     hist_err = 0
     for levels in (16, 256):
         for band in range(himg.shape[2]):
-            hist_err = max(hist_err, compare_hist(hist_calls(
+            hist_err = max(hist_err, compare_hist(shard_calls(
                 cmesh, pmesh.shard_raster(cmesh, himg)[0],
                 pmesh.shard_raster(cmesh, hlab, fill=-1)[0], hK, levels,
-                band), f"edge-case sharded scene, L={levels}, band {band}"))
+                band)[1], f"edge-case sharded scene, L={levels}, band {band}"))
 
     # -- 10. config 5 at its real size on a 2 x 4 mesh on the card ---------
     from obia_tpu_torch.parallel.sharded import count_shard_spanning
@@ -735,7 +938,7 @@ def main() -> None:
     lab5 = r5.layer.shards
     n_span, _ = count_shard_spanning(lab5.mesh, lab5, n5)
     img5_sh = pmesh.shard_raster(lab5.mesh, image5.device_tensor("cuda"))[0]
-    calls5 = hist_calls(lab5.mesh, img5_sh, lab5, n5, 256, 0)
+    sums5_calls, calls5 = shard_calls(lab5.mesh, img5_sh, lab5, n5, 256, 0)
     same5 = np.array_equal(r5_cold.label_raster, r5.label_raster)
     log(f"cold and warm label rasters identical: {same5}")
     log(f"config 5 {C5_SIZE}^2 RGB on a {lab5.mesh.ty} x {lab5.mesh.tx} "
@@ -760,40 +963,71 @@ def main() -> None:
     h_plain = time_ms(lambda: [glcm_kernel.glcm_hist_reference(*a)
                                for _, a in calls5], 3)
     glcm_kernel.hist_launches = before
+    h_bound = hist_bound_ms(calls5)
     log(f"GLCM histogram, one band of config 5 ({len(calls5)} launches, "
         f"{sum(a[3].numel() for _, a in calls5)} spanner tables): kernel "
-        f"{h_ms:.3f} ms, plain torch {h_plain:.3f} ms ({card})")
+        f"{h_ms:.3f} ms, plain torch {h_plain:.3f} ms, bound {h_bound:.4f} "
+        f"ms ({card})")
+    for i, a in enumerate(sums5_calls):
+        err = max(err, compare_kernel(a, f"config 5 shard {i} band 0"))
+    before = glcm_kernel.launches
+    s5_ms = time_ms(lambda: [glcm_kernel.glcm_sums(*a)
+                             for a in sums5_calls], 10)
+    s5_plain = time_ms(lambda: [glcm_kernel.glcm_sums_reference(*a)
+                                for a in sums5_calls], 3)
+    glcm_kernel.launches = before
+    bound5 = sums_bound_ms(sums5_calls)
+    bound5_l = sums_bound_ms(sums5_calls, True)
+    log(f"GLCM sums, one band of config 5 ({len(sums5_calls)} launches, "
+        f"K={n5}): kernel {s5_ms:.3f} ms, plain torch {s5_plain:.3f} ms, "
+        f"bound {bound5:.4f} ms (band in place: {bound5_l:.4f} ms) "
+        f"({card})")
+    kernel_split(lambda: [glcm_kernel.glcm_sums(*a) for a in sums5_calls],
+                 "GLCM sums kernels, 8 launches")
+    glcm_kernel.launches = before
 
     # -- 11. sharded vs single-device on the card --------------------------
     sharded_vs_single(r5, image5)
-    del r5, r5_cold, calls5, img5_sh
+    del r5, r5_cold, calls5, sums5_calls, img5_sh
 
     # -- 12. config-5 cross-check against the CPU plain path --------------
     cross_check(run_config5, build_scene(h=C5_CROSS_SIZE, w=C5_CROSS_SIZE),
                 f"config 5 {C5_CROSS_SIZE}^2")
 
     log(card_line())
+    qs_r = 15  # the radius qs_time measures at
     log(json.dumps({"kernels": [
         {"name": "glcm_sums", "route": "cuda",
          "source": "obia_tpu_torch/csrc/glcm.cu",
          "replaces": "obia_tpu/ops/glcm_pallas.py:220",
          "launches": launches, "max_abs_err": err, "ms": ms,
-         "plain_ms": plain_ms},
+         "plain_ms": plain_ms, "bound_ms": bound, "bound_by": "bytes",
+         "bound_ms_layout": bound_l, "library_ms": None, "ms_config2": g_ms,
+         "plain_ms_config2": g_plain, "bound_ms_config2": bound2,
+         "bound_ms_layout_config2": bound2_l, "launches_config2": glcm2,
+         "ms_config5": s5_ms, "plain_ms_config5": s5_plain,
+         "bound_ms_config5": bound5, "bound_ms_layout_config5": bound5_l,
+         "launches_config5": sums5},
         {"name": "qs_density", "route": "cuda",
          "source": "obia_tpu_torch/csrc/quickshift.cu",
          "replaces": "obia_tpu/ops/quickshift_pallas.py:118",
          "launches": qs_launches["qs_density"], "max_abs_err": qs_err[0],
-         "ms": qs_ms, "plain_ms": qs_plain},
+         "ms": qs_ms, "plain_ms": qs_plain,
+         "bound_ms": qs_bound_ms(x2, qs_r, 0), "bound_by": "operations",
+         "library_ms": None},
         {"name": "qs_parent", "route": "cuda",
          "source": "obia_tpu_torch/csrc/quickshift.cu",
          "replaces": "obia_tpu/ops/quickshift_pallas.py:144",
          "launches": qs_launches["qs_parent"], "max_abs_err": qs_err[1],
-         "ms": qp_ms, "plain_ms": qp_plain},
+         "ms": qp_ms, "plain_ms": qp_plain,
+         "bound_ms": qs_bound_ms(x2, qs_r, 2), "bound_by": "operations",
+         "library_ms": None},
         {"name": "glcm_hist", "route": "cuda",
          "source": "obia_tpu_torch/csrc/glcm.cu",
          "replaces": "obia_tpu/ops/glcm_pallas.py:258",
          "launches": hist5, "max_abs_err": float(hist_err), "ms": h_ms,
-         "plain_ms": h_plain}]}))
+         "plain_ms": h_plain, "bound_ms": h_bound, "bound_by": "bytes",
+         "library_ms": None}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

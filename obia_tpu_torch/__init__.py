@@ -2,12 +2,15 @@
 kernels for NVIDIA Hopper.
 
 A port of ``obia_tpu`` (JAX/XLA/Pallas), which stays the reference. It
-mirrors that package's module layout; the code is plain torch on tensors
-with an explicit ``device`` (the input's device otherwise), and every
-Pallas kernel on the ported path is a CUDA kernel under ``csrc/``, built
-with nvcc at first use (:mod:`obia_tpu_torch._build`). It shares the
-jax-free host layer of ``obia_tpu``: ``geometry``, ``io``, ``native`` (the
-C++ polygoniser) and ``config``.
+mirrors that package's module layout and imports nothing of it. The code is
+plain torch; entry points whose input is not yet a tensor run on the card
+unless given ``device="cpu"`` (:mod:`obia_tpu_torch.device`), and functions
+that take tensors follow their tensors. Every Pallas kernel on the ported
+path is a CUDA kernel under ``csrc/``, built with nvcc at first use
+(:mod:`obia_tpu_torch._build`). The host layer is the port's own:
+``geometry`` (affine, CRS, polygons), ``io`` (the GeoTIFF reader, the
+GeoPackage writer), ``vector`` (the pandas ``GeoDataFrame``) and ``native``
+(the C++ polygoniser and union-find, built with g++ at first use).
 
     from obia_tpu_torch.handlers.geotif import open_geotiff, image_from_array
     from obia_tpu_torch.segmentation.segment import segment, Segments

@@ -111,7 +111,7 @@ def load() -> ctypes.CDLL:
             lib = ctypes.CDLL(str(build()))
             p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
             lib.obia_glcm_sums.argtypes = [p, p, ll, ll, ll, p, p, p, ll, i,
-                                           ctypes.POINTER(i), i, p, p, p]
+                                           ctypes.POINTER(i), i, p, p, p, p]
             lib.obia_glcm_sums.restype = i
             lib.obia_glcm_hist.argtypes = [p, p, ll, ll, ll, p, p, p, p, ll,
                                            ll, i, ctypes.POINTER(i), i, p, p]

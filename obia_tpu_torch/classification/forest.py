@@ -14,6 +14,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..device import resolve_device
+
 
 class ForestArrays:
     """Dense forest tables: feature (T, N) int64 (-1 at leaves), threshold
@@ -39,7 +41,8 @@ class ForestArrays:
     @classmethod
     def from_numpy(cls, feature, threshold, left, right, leaf_proba, classes,
                    max_depth: int, device=None) -> "ForestArrays":
-        dev = torch.device("cpu" if device is None else device)
+        """The tables on ``device`` (the card when None)."""
+        dev = resolve_device(device)
 
         def t(a, dtype):
             return torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)
@@ -50,7 +53,8 @@ class ForestArrays:
 
     @classmethod
     def from_sklearn(cls, rf, device=None) -> "ForestArrays":
-        """Export a fitted ``sklearn.ensemble.RandomForestClassifier``."""
+        """Export a fitted ``sklearn.ensemble.RandomForestClassifier`` to
+        ``device`` (the card when None)."""
         trees = [est.tree_ for est in rf.estimators_]
         T = len(trees)
         N = max(t.node_count for t in trees)
@@ -79,7 +83,8 @@ class ForestArrays:
 
 def forest_from_jax(arrays, device=None) -> ForestArrays:
     """Carry a forest exported by ``obia_tpu.classification.forest.
-    ForestArrays`` (numpy fields) into the port's tensors."""
+    ForestArrays`` (numpy fields) into the port's tensors on ``device``
+    (the card when None)."""
     return ForestArrays.from_numpy(arrays.feature, arrays.threshold,
                                    arrays.left, arrays.right,
                                    arrays.leaf_proba, arrays.classes,
@@ -124,11 +129,11 @@ def _fit_cache_key(params: dict, X: np.ndarray, y: np.ndarray):
 class TorchForestClassifier:
     """sklearn-compatible facade: host ``fit`` (sklearn, memoised for
     seeded refits of the same table), ``predict_proba``/``predict`` on
-    ``device`` (the CPU unless given)."""
+    ``device`` (the card when None; ``"cpu"`` asks for the CPU)."""
 
     def __init__(self, device=None, **kwargs):
         from sklearn.ensemble import RandomForestClassifier
-        self.device = torch.device("cpu" if device is None else device)
+        self.device = resolve_device(device)
         self._skl = RandomForestClassifier(**kwargs)
         self._arrays: Optional[ForestArrays] = None
 
@@ -146,7 +151,7 @@ class TorchForestClassifier:
                 from sklearn.base import clone
                 self._skl = clone(self._skl)
             self._skl.fit(X, y)
-            host = ForestArrays.from_sklearn(self._skl)
+            host = ForestArrays.from_sklearn(self._skl, device="cpu")
             if key is not None:
                 if len(_FIT_CACHE) >= _FIT_CACHE_MAX:
                     _FIT_CACHE.pop(next(iter(_FIT_CACHE)))

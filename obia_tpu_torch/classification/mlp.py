@@ -27,6 +27,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..device import resolve_device
+
 _ACTIVATIONS = {
     "relu": torch.relu,
     "tanh": torch.tanh,
@@ -74,7 +76,7 @@ def _init_params(model: MLP, random_state: int) -> None:
 class TorchMLPClassifier:
     """sklearn-style MLP: ``fit``, ``predict_proba``, ``predict``,
     ``get_params`` and ``classes_``; fit and inference run on ``device``
-    (the CPU unless given)."""
+    (the card when None; ``"cpu"`` asks for the CPU)."""
 
     def __init__(self, hidden_layer_sizes=(100,), activation="relu",
                  alpha=1e-4, learning_rate_init=1e-3, max_iter=200,
@@ -91,7 +93,7 @@ class TorchMLPClassifier:
         self.random_state = int(random_state or 0)
         self.tol = float(tol)
         self.n_iter_no_change = int(n_iter_no_change)
-        self.device = torch.device("cpu" if device is None else device)
+        self.device = resolve_device(device)
         self._model: Optional[MLP] = None
         self.classes_ = None
 
@@ -190,7 +192,8 @@ def mlp_from_flax(params, classes, hidden, activation: str = "relu",
                   device=None) -> TorchMLPClassifier:
     """A fitted classifier from the reference's Flax parameters
     (``FlaxMLPClassifier._params``: ``{"params": {"Dense_i": {"kernel",
-    "bias"}}}``, kernels (in, out)) and its ``classes_``."""
+    "bias"}}}``, kernels (in, out)) and its ``classes_``, on ``device``
+    (the card when None)."""
     tree = params["params"] if "params" in params else params
     dense = [tree[f"Dense_{i}"] for i in range(len(tree))]
     n_features = np.asarray(dense[0]["kernel"]).shape[0]

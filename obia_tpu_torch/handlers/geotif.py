@@ -2,9 +2,10 @@
 
 ``Image.img_data`` is an (H, W, C) float32 numpy array, as in the
 reference; ``device_tensor(device)`` uploads it once per device and caches
-it. Files are read with the shared ``obia_tpu.io.tiff`` codec. The port's
-entry points also take the JAX package's ``Image`` (anything with
-``img_data``, ``crs``, ``transform`` and ``affine_transformation``).
+it. Files are read with the port's own GeoTIFF reader
+(:mod:`obia_tpu_torch.io.tiff`). The port's entry points also take any
+container with ``img_data``, ``crs``, ``transform`` and
+``affine_transformation``, such as the JAX package's ``Image``.
 """
 from __future__ import annotations
 
@@ -13,9 +14,9 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from obia_tpu.geometry.affine import Affine
-from obia_tpu.geometry.crs import CRS
-from obia_tpu.io.tiff import TiffReader
+from ..geometry.affine import Affine
+from ..geometry.crs import CRS
+from ..io.tiff import TiffReader
 
 
 class Image:
@@ -72,9 +73,21 @@ def as_image(image) -> Image:
     package's ``Image`` (its array is shared, not copied)."""
     if isinstance(image, Image):
         return image
-    return Image(np.asarray(image.img_data, np.float32), image.crs,
+    return Image(np.asarray(image.img_data, np.float32), _as_crs(image.crs),
                  list(image.affine_transformation), image.transform,
                  nodata=getattr(image, "nodata", None))
+
+
+def _as_crs(crs) -> Optional[CRS]:
+    """The port's :class:`CRS` for ``crs``, which may be another package's
+    CRS object (anything with ``to_epsg`` and ``to_wkt``)."""
+    if crs is None or isinstance(crs, CRS):
+        return crs
+    if hasattr(crs, "to_epsg"):
+        epsg = crs.to_epsg()
+        return CRS.from_epsg(epsg) if epsg is not None else CRS.from_wkt(
+            crs.to_wkt())
+    return CRS.from_user_input(crs)
 
 
 def open_geotiff(image_path: str, bands: Optional[List[int]] = None) -> Image:
@@ -101,7 +114,7 @@ def image_from_array(img_data: np.ndarray, transform: Affine, crs=None,
         img_data = img_data[:, :, None]
     raw = (np.ascontiguousarray(img_data)
            if np.asarray(img_data).dtype.itemsize < 4 else None)
-    crs_obj = CRS.from_user_input(crs) if crs is not None else None
+    crs_obj = _as_crs(crs)
     t = transform
     return Image(np.asarray(img_data, dtype=np.float32), crs_obj,
                  [t.a, t.b, t.d, t.e, t.c, t.f], t, nodata=nodata,

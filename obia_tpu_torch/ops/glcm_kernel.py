@@ -1,9 +1,11 @@
 """Per-object GLCM sums: the hand-written CUDA kernel and its plain twin.
 
 :func:`glcm_sums` is the one entry point. For a CUDA tensor it launches
-``csrc/glcm.cu`` (which replaces ``obia_tpu/ops/glcm_pallas.py::_kernel``)
-or raises; for a CPU tensor it runs :func:`glcm_sums_reference`, the same
-function in plain torch. Both return
+``csrc/glcm.cu`` (which replaces ``obia_tpu/ops/glcm_pallas.py::_kernel``:
+a pack pass, a warp per object whose box holds at most
+:data:`SMALL_MAX_PX` pixels, and persistent blocks for the larger objects,
+all chosen on the device) or raises; for a CPU tensor it runs
+:func:`glcm_sums_reference`, the same function in plain torch. Both return
 
 * ``isums`` (A, K, 7) int64: n, sum d^2, sum |d|, sum(i+j), sum(i^2+j^2),
   sum ij over the ordered (centre, neighbour) level pairs of each object at
@@ -33,8 +35,13 @@ from typing import Sequence, Tuple
 
 import torch
 
-launches = 0  # glcm_sums kernel launches in this process; twins never count
+launches = 0  # glcm_sums kernel calls in this process; twins never count
 hist_launches = 0  # glcm_hist kernel launches in this process
+# the most pixels of an object's box (clipped to the raster) that the
+# warp-per-object kernel sums; larger boxes go to the block-per-item kernel.
+# The kernel's own constant is GLCM_SMALL_CAP in csrc/glcm.cu; this mirror
+# is for the tests, which hold the two equal.
+SMALL_MAX_PX = 256
 
 
 def glcm_sums(labels: torch.Tensor, image: torch.Tensor, band: int,
@@ -47,6 +54,8 @@ def glcm_sums(labels: torch.Tensor, image: torch.Tensor, band: int,
     image: (H, W, C) float32; ``band`` selects the channel.
     bboxes: (K, 4) int32 [rmin, rmax, cmin, cmax] (rmin > rmax: empty).
     mn, inv: (K,) float32 quantiser minimum and (L-1)/range per object.
+    On the card K must be below 2^23 (the kernel packs the label into 23
+    bits) and one call counts one launch, however many kernels it starts.
     """
     if labels.device.type == "cpu":
         return glcm_sums_reference(labels, image, band, bboxes, mn, inv,
@@ -76,10 +85,15 @@ def glcm_sums(labels: torch.Tensor, image: torch.Tensor, band: int,
     A = len(offsets)
     if not 1 <= A <= 8:
         raise ValueError(f"{A} offsets: the kernel takes 1..8")
-    isums = torch.zeros((A, K, 7), dtype=torch.int64, device=labels.device)
-    hsum = torch.zeros((A, K), dtype=torch.float64, device=labels.device)
-    if K == 0:
-        return isums, hsum
+    if K >= 1 << 23:
+        raise ValueError(f"K={K} objects: the kernel takes fewer than 2^23")
+    isums = torch.empty((A, K, 7), dtype=torch.int64, device=labels.device)
+    hsum = torch.empty((A, K), dtype=torch.float64, device=labels.device)
+    if K == 0 or H * W == 0:
+        return isums.zero_(), hsum.zero_()
+    # packed levels (H*W), the ids of the large objects (K), two counters
+    scratch = torch.empty(H * W + K + 2, dtype=torch.int32,
+                          device=labels.device)
 
     from .. import _build
     lib = _build.load()
@@ -89,7 +103,8 @@ def glcm_sums(labels: torch.Tensor, image: torch.Tensor, band: int,
         status = lib.obia_glcm_sums(
             labels.data_ptr(), image.data_ptr() + 4 * band, H, W, C,
             bboxes.data_ptr(), mn.data_ptr(), inv.data_ptr(), K, levels,
-            offs, A, isums.data_ptr(), hsum.data_ptr(), stream)
+            offs, A, scratch.data_ptr(), isums.data_ptr(), hsum.data_ptr(),
+            stream)
     if status != 0:
         raise RuntimeError(f"GLCM kernel launch failed: CUDA error {status}")
     global launches

@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from .. import telemetry
+from ..device import resolve_device
 from .quickshift_kernel import quickshift_density, quickshift_parent
 from .slic import _compact_first_occurrence
 
@@ -72,11 +73,15 @@ def flatten_tree(doff: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return root.view(H, W), parent.view(H, W)
 
 
-def _as_float_image(image, channel_axis: int) -> torch.Tensor:
-    """(H, W, C) float32 tensor on the input's device (numpy: the CPU);
-    integer images scale to [0, 1] as skimage's ``img_as_float`` does."""
-    t = image if torch.is_tensor(image) else torch.from_numpy(
-        np.ascontiguousarray(image))
+def _as_float_image(image, channel_axis: int, device=None) -> torch.Tensor:
+    """(H, W, C) float32 tensor on ``device``: for a tensor, its own device
+    when None; for an array, the card when None (``resolve_device``).
+    Integer images scale to [0, 1] as skimage's ``img_as_float`` does."""
+    if torch.is_tensor(image):
+        t = image if device is None else image.to(device)
+    else:
+        t = torch.from_numpy(np.ascontiguousarray(image)).to(
+            resolve_device(device))
     if t.is_floating_point():
         img = t.to(torch.float32)
     else:
@@ -91,12 +96,14 @@ def _as_float_image(image, channel_axis: int) -> torch.Tensor:
 def quickshift_tree(image, ratio: float = 1.0, kernel_size: float = 5.0,
                     max_dist: float = 10.0, sigma: float = 0.0,
                     convert2lab: bool = True, rng=42, random_seed=None,
-                    channel_axis: int = -1
+                    channel_axis: int = -1, device=None
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Quickshift on the image's device -> (root, parent, dist), each
-    (H, W): root and parent as int64 linear pixel indices (roots point to
-    themselves), dist float32 (inf at roots)."""
-    img = _as_float_image(image, channel_axis)
+    """Quickshift -> (root, parent, dist), each (H, W): root and parent as
+    int64 linear pixel indices (roots point to themselves), dist float32
+    (inf at roots). It runs on ``device``; when None, on a tensor's own
+    device, and for an array on the card (raising where there is none;
+    ``device="cpu"`` asks for the CPU)."""
+    img = _as_float_image(image, channel_axis, device)
     if convert2lab and img.shape[-1] == 3:
         from .color import rgb_to_lab
         img = rgb_to_lab(img)
@@ -119,16 +126,18 @@ def quickshift_tree(image, ratio: float = 1.0, kernel_size: float = 5.0,
 def quickshift(image, ratio: float = 1.0, kernel_size: float = 5.0,
                max_dist: float = 10.0, sigma: float = 0.0,
                convert2lab: bool = True, rng=42, random_seed=None,
-               return_tree: bool = False, channel_axis: int = -1):
-    """skimage-compatible entry point on the image's device (a numpy image
-    runs on the CPU). Returns (H, W) int64 labels compacted from 0 in
+               return_tree: bool = False, channel_axis: int = -1,
+               device=None):
+    """skimage-compatible entry point, on ``device`` as
+    :func:`quickshift_tree` places it (an array: the card unless
+    ``device="cpu"``). Returns (H, W) int64 labels compacted from 0 in
     raster (first-occurrence) order; with ``return_tree`` also the parent
     linear indices (int64) and the distance to the parent (float32, inf at
     roots)."""
     root, parent, dist = quickshift_tree(
         image, ratio=ratio, kernel_size=kernel_size, max_dist=max_dist,
         sigma=sigma, convert2lab=convert2lab, rng=rng,
-        random_seed=random_seed, channel_axis=channel_axis)
+        random_seed=random_seed, channel_axis=channel_axis, device=device)
     labels, _ = _compact_first_occurrence(root, root.numel())
     labels = labels.to(torch.int64)
     if return_tree:

@@ -8,7 +8,8 @@ devices it is given, a :class:`ShardedRaster` is the (ty, tx) grid of
 contiguous local blocks of a padded raster plus its crop (H, W), and
 :func:`psum`, :func:`pmin` and :func:`pmax` reduce per-shard tensors onto
 the mesh's first device. Eight shards on ``["cuda:0"]`` put every shard on
-one card; eight on ``["cpu"]`` is the layout of the CPU tests. Every seam,
+one card (with no ``devices``, :func:`make_mesh` takes the card); eight on
+``["cpu"]`` is the layout of the CPU tests. Every seam,
 halo and reduction of the path runs the same in both.
 """
 from __future__ import annotations
@@ -18,6 +19,8 @@ from typing import Callable, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from ..device import resolve_device
 
 DEFAULT_SHARDS = 8  # the 2 x 4 layout of the JAX package's mosaic mesh
 
@@ -55,10 +58,11 @@ class Mesh:
 
 def make_mesh(n_shards: Optional[int] = None, devices=None) -> Mesh:
     """Most-square (ty, tx) factorisation of ``n_shards`` (default 8) over
-    ``devices`` (default the CPU). Shards never move off the devices given."""
+    ``devices`` (default the card, raising where there is none; ``["cpu"]``
+    asks for the CPU). Shards never move off the devices given."""
     n = int(n_shards or DEFAULT_SHARDS)
     if devices is None:
-        devices = ["cpu"]
+        devices = [resolve_device(None)]
     elif isinstance(devices, (str, torch.device)):
         devices = [devices]
     ty = int(math.sqrt(n))

@@ -190,7 +190,7 @@ def _glue(mesh: Mesh, labels: ShardedRaster, pieces, cleaned, W: int,
     pa = np.concatenate([pa_v.reshape(-1), pa_h.reshape(-1)])
     pb = np.concatenate([pb_v.reshape(-1), pb_h.reshape(-1)])
 
-    from obia_tpu import native
+    from .. import native
     identity = np.arange(n_ids, dtype=np.int64)[None, :]
     roots = native.resolve_components(identity, pa.astype(np.int64),
                                       pb.astype(np.int64))[0]

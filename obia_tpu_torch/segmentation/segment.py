@@ -12,9 +12,10 @@ from .segment_statistics import ObjectTable, create_objects
 class Segments:
     """The polygon layer (``layer``), the per-object feature table
     (``table``), the method and the parameters used. ``segments`` and
-    ``objects`` are the feature table as an ``obia_tpu.vector.GeoDataFrame``
-    (pandas is imported on first access); ``segments`` is the name the
-    reference uses."""
+    ``objects`` are the feature table as an
+    :class:`obia_tpu_torch.vector.geodataframe.GeoDataFrame` (pandas is
+    imported on first access); ``segments`` is the name the reference
+    uses."""
 
     def __init__(self, layer: SegmentLayer, table: ObjectTable, method,
                  **kwargs):
@@ -48,9 +49,10 @@ def segment(image, segmentation_bands=None, statistics_bands=None,
             calc_contrast=True, calc_dissimilarity=True,
             calc_homogeneity=True, calc_ASM=True, calc_energy=True,
             calc_correlation=True, device=None, **kwargs) -> Segments:
-    """Segment + featurise in one call. ``device`` is where both run
-    (``"cuda"`` for the card); None runs them where the image's numpy data
-    lives, the CPU. The host polygonisation overlaps the featurisation."""
+    """Segment + featurise in one call. ``device`` is where both run: the
+    card when None (raises where there is none), the CPU only with
+    ``device="cpu"``. The host polygonisation overlaps the
+    featurisation."""
     image = as_image(image)
     layer = create_segments(image, segmentation_bands=segmentation_bands,
                             method=method, device=device,

@@ -3,10 +3,10 @@
 
 SLIC (with connectivity and the small-segment merge) or quickshift (with
 connected components of its root raster) runs on the chosen device; the
-labels cross to the host once, as row-wise runs, and the shared native
-polygoniser (``obia_tpu.native``) traces every object from those runs,
-optionally in a background thread that overlaps the device featurisation.
-The result is a pandas-free :class:`SegmentLayer`.
+labels cross to the host once, as row-wise runs, and the port's native
+polygoniser (:mod:`obia_tpu_torch.native`) traces every object from those
+runs, optionally in a background thread that overlaps the device
+featurisation. The result is a pandas-free :class:`SegmentLayer`.
 """
 from __future__ import annotations
 
@@ -16,9 +16,9 @@ from typing import List, Sequence
 import numpy as np
 import torch
 
-from obia_tpu.geometry.crs import CRS
-
 from .. import telemetry
+from ..device import resolve_device
+from ..geometry.crs import CRS
 from ..handlers.geotif import as_image
 
 _SLIC_KWARGS = {
@@ -81,28 +81,19 @@ class SegmentLayer:
 def _polygonize(label_raster, n_labels: int, affine) -> List:
     """World-space geometry per label 0..n-1 (Polygon, or MultiPolygon for a
     region pinched at a corner) from the RLE label raster."""
-    from obia_tpu import native
-    from obia_tpu.geometry.geom import (MultiPolygon, affine_transform,
-                                        affine_transform_coords)
-    from obia_tpu.geometry.polygonize import (group_rings_packed,
-                                              polygonize_labels)
+    from .. import native
+    from ..geometry.geom import MultiPolygon, affine_transform_coords
+    from ..geometry.polygonize import group_rings_packed
 
-    packed = native.polygonize_rings_rle_packed(
+    rlabels, n_pts, areas, coords = native.polygonize_rings_rle_packed(
         label_raster.values, label_raster.lengths, label_raster.shape)
-    if packed is not None:
-        rlabels, n_pts, areas, coords = packed
-        coords = affine_transform_coords(coords, affine)
-        offsets = np.concatenate([[0], np.cumsum(n_pts)])
-        polys = group_rings_packed(rlabels, areas, offsets, coords)
-        world = True
-    else:  # no C++ compiler: the numpy polygoniser, pixel space
-        polys = polygonize_labels(np.asarray(label_raster))
-        world = False
+    coords = affine_transform_coords(coords, affine)
+    offsets = np.concatenate([[0], np.cumsum(n_pts)])
+    polys = group_rings_packed(rlabels, areas, offsets, coords)
     out = []
     for label in range(n_labels):
         plist = polys.get(label, [])
-        geom = plist[0] if len(plist) == 1 else MultiPolygon(plist)
-        out.append(geom if world else affine_transform(geom, affine))
+        out.append(plist[0] if len(plist) == 1 else MultiPolygon(plist))
     return out
 
 
@@ -112,8 +103,8 @@ def create_segments(image, segmentation_bands=None, method: str = "slic",
     """Segment an image into a :class:`SegmentLayer` (segment_id 1..N).
 
     ``method`` is ``"slic"`` or ``"quickshift"``; ``device`` is where
-    segmentation runs; None runs it where the image's numpy data lives, the
-    CPU. Quickshift's roots go straight to connected components, which
+    segmentation runs: the card (``"cuda"``) when None, which raises where
+    there is none; ``device="cpu"`` runs it on the CPU. Quickshift's roots go straight to connected components, which
     number them in raster order: the reference's host compaction followed
     by ``relabel_connected`` gives the same labels. With
     ``_async_polygonize`` the host polygonisation runs in a background
@@ -136,7 +127,7 @@ def create_segments(image, segmentation_bands=None, method: str = "slic",
     else:
         raise Exception("An unknown segmentation method was requested.")
     image = as_image(image)
-    device = torch.device("cpu" if device is None else device)
+    device = resolve_device(device)
     H, W, num_bands = image.img_data.shape
     bands = (list(range(num_bands)) if segmentation_bands is None
              else list(segmentation_bands))

@@ -65,9 +65,9 @@ class ObjectTable:
         return self.layer.crs
 
     def to_geodataframe(self):
-        """``obia_tpu.vector.GeoDataFrame`` of every column (imports
-        pandas)."""
-        from obia_tpu.vector import GeoDataFrame
+        """:class:`obia_tpu_torch.vector.geodataframe.GeoDataFrame` of
+        every column (imports pandas)."""
+        from ..vector.geodataframe import GeoDataFrame
         return GeoDataFrame(dict(self.columns), geometry=self.geometry,
                             crs=self.crs)
 

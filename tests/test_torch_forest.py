@@ -39,14 +39,15 @@ def test_forest_from_jax_matches_jax_proba(seed, classes, trees):
     want = np.asarray(jforest._forest_proba(
         *a.device_arrays(), jnp.asarray(X[200:].astype(np.float32)),
         max_depth=a.max_depth, n_trees=T, n_nodes=N))
-    got = forest_proba(forest_from_jax(a), torch.as_tensor(X[200:]))
+    got = forest_proba(forest_from_jax(a, device="cpu"), torch.as_tensor(X[200:]))
     np.testing.assert_allclose(got.numpy(), want, atol=1e-6)
 
 
 @pytest.mark.parametrize("seed", [2, 3])
 def test_torch_forest_matches_sklearn(seed):
     X, y = data(seed)
-    clf = TorchForestClassifier(n_estimators=25, random_state=0)
+    clf = TorchForestClassifier(n_estimators=25, random_state=0,
+                                device="cpu")
     clf.fit(X[:200], y[:200])
     want = clf._skl.predict_proba(X[200:])
     np.testing.assert_allclose(clf.predict_proba(X[200:]), want, atol=1e-5)
@@ -56,15 +57,18 @@ def test_torch_forest_matches_sklearn(seed):
 
 def test_fit_cache_reuses_a_seeded_fit():
     X, y = data(4)
-    a = TorchForestClassifier(n_estimators=10, random_state=3).fit(X, y)
-    b = TorchForestClassifier(n_estimators=10, random_state=3).fit(X, y)
+    a = TorchForestClassifier(n_estimators=10, random_state=3,
+                              device="cpu").fit(X, y)
+    b = TorchForestClassifier(n_estimators=10, random_state=3,
+                              device="cpu").fit(X, y)
     assert a._skl is b._skl
     np.testing.assert_array_equal(a.predict_proba(X), b.predict_proba(X))
 
 
 def test_forest_arrays_to_keeps_tables():
     X, y = data(5)
-    clf = TorchForestClassifier(n_estimators=5, random_state=0).fit(X, y)
+    clf = TorchForestClassifier(n_estimators=5, random_state=0,
+                                device="cpu").fit(X, y)
     moved = clf._arrays.to("cpu")
     assert isinstance(moved, ForestArrays)
     assert moved.max_depth == clf._arrays.max_depth
@@ -74,4 +78,4 @@ def test_forest_arrays_to_keeps_tables():
 def test_unfitted_classifier_raises():
     from sklearn.exceptions import NotFittedError
     with pytest.raises(NotFittedError):
-        TorchForestClassifier(n_estimators=3).predict_proba(np.zeros((2, 3)))
+        TorchForestClassifier(n_estimators=3, device="cpu").predict_proba(np.zeros((2, 3)))

@@ -13,6 +13,10 @@ the test marked ``cuda``, which runs only on a card.
 JAX is imported inside the tests that use it, so that the ``cuda`` test also
 runs where only torch is installed (``pytest --noconftest -m cuda``).
 """
+import math
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -267,3 +271,109 @@ def test_cuda_kernel_matches_twin(cuda_device, scene):
         want_i, want_h = glcm_kernel.glcm_sums_reference(*args)
         assert torch.equal(isums, want_i)
         torch.testing.assert_close(hsum, want_h, rtol=1e-6, atol=0)
+
+
+def small_objects_scene(seed=5):
+    """Many small objects: rectangles of 1-60 px with 10% of the pixels
+    unlabelled, a constant one, and solid objects whose boxes hold 255 and
+    256 px (the kernel's warp-per-object class, up to 224 pairs at an
+    angle) and 257 and 272 px (its block-per-item class)."""
+    rng = np.random.default_rng(seed)
+    H, W = 120, 300
+    lab = np.full((H, W), -1, np.int64)
+    lab[2:17, 2:19] = 0            # 15 x 17 = 255 px
+    lab[20:36, 2:18] = 1           # 16 x 16 = 256 px
+    lab[40, 5:262] = 2             # 1 x 257 px
+    lab[44:60, 2:19] = 3           # 16 x 17 = 272 px
+    nxt, r = 4, 62
+    while r < H:                   # rows of random rectangles below them
+        h = int(rng.integers(1, 7))
+        c = 0
+        while c < W:
+            w = int(rng.integers(1, 11))
+            lab[r:r + h, c:c + w] = nxt
+            nxt, c = nxt + 1, c + w
+        r += h
+    for r0 in range(2, 34, 6):     # and beside them
+        for c0 in range(25, W, 9):
+            lab[r0:r0 + int(rng.integers(1, 7)),
+                c0:c0 + int(rng.integers(1, 10))] = nxt
+            nxt += 1
+    lab[(rng.random((H, W)) < 0.1) & (lab > 3)] = -1
+    ids, inv = np.unique(lab, return_inverse=True)
+    lab = (inv.reshape(H, W) - int(ids[0] < 0)).astype(np.int32)
+    img = rng.integers(0, 256, (H, W, 1)).astype(np.float32)
+    img[lab == lab[70, 5]] = 9.0   # a constant object
+    return img, lab, int(lab.max()) + 1
+
+
+def big_object_scene(seed=6):
+    """One object over most of a 300 x 420 raster, values over all 256
+    levels, a ring of unlabelled pixels and a few small objects."""
+    rng = np.random.default_rng(seed)
+    lab = np.zeros((300, 420), np.int32)
+    lab[:3] = -1
+    lab[:, -2:] = -1
+    lab[100:104, 200:210] = 1
+    lab[250:251, 20:40] = 2
+    img = rng.uniform(0, 1000, (300, 420, 1)).astype(np.float32)
+    return img, lab, 3
+
+
+KERNEL_SCENES = {"small_objects": small_objects_scene,
+                 "big_object": big_object_scene}
+OFFSETS8 = tg.angle_offsets(2, [i * math.pi / 8 for i in range(8)])
+
+
+def _scene_inputs(img, lab, K, levels, device="cpu"):
+    image = torch.as_tensor(img, device=device)
+    labels = torch.as_tensor(lab, device=device)
+    mins = tg.bbox_minmax(image, labels, K, (0,))
+    mn = mins[:, 4].contiguous()
+    inv = tg.quant_inv(-mins[:, 5] - mn, levels).contiguous()
+    return (labels, image, 0, tg._bboxes_from_mins(mins), mn, inv, levels,
+            OFFSETS8)
+
+
+def test_kernel_scenes_straddle_the_size_classes():
+    img, lab, K = small_objects_scene()
+    boxes = _scene_inputs(img, lab, K, 256)[3].long()
+    area = (boxes[:, 1] - boxes[:, 0] + 1) * (boxes[:, 3] - boxes[:, 2] + 1)
+    small = glcm_kernel.SMALL_MAX_PX
+    assert area[:4].tolist() == [small - 1, small, small + 1, 272]
+    sizes = np.bincount(lab[lab >= 0])
+    assert sizes[4:].min() >= 1 and sizes[4:].max() <= 60 and K > 1000
+    isums, _ = glcm_kernel.glcm_sums_reference(*_scene_inputs(img, lab, K,
+                                                              256))
+    assert int(isums[0, :4, 0].max()) > 32   # > 32 pairs at an angle
+    img, lab, K = big_object_scene()
+    args = _scene_inputs(img, lab, K, 256)
+    q = glcm_kernel.quantise_pixels(args[0], args[1][..., 0], args[4],
+                                    args[5], 256)
+    assert len(np.unique(q.numpy()[lab == 0])) == 256
+
+
+def test_small_class_cap_mirrors_the_kernel():
+    """SMALL_MAX_PX is the tests' copy of the kernel's GLCM_SMALL_CAP."""
+    src = (Path(glcm_kernel.__file__).parent.parent / "csrc" / "glcm.cu")
+    m = re.search(r"^#define GLCM_SMALL_CAP (\d+)", src.read_text(), re.M)
+    assert m and int(m.group(1)) == glcm_kernel.SMALL_MAX_PX
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("levels", [1, 2, 16, 256])
+@pytest.mark.parametrize("scene", sorted(KERNEL_SCENES))
+def test_cuda_kernel_size_classes_match_twin(cuda_device, scene, levels):
+    """Both size classes, 8 offsets: integer sums equal to the twin's,
+    sum 1/(1+d^2) within rtol 1e-6, two runs identical, one launch a
+    call."""
+    args = _scene_inputs(*KERNEL_SCENES[scene](), levels, cuda_device)
+    before = glcm_kernel.launches
+    isums, hsum = glcm_kernel.glcm_sums(*args)
+    again = glcm_kernel.glcm_sums(*args)
+    torch.cuda.synchronize()
+    assert glcm_kernel.launches == before + 2
+    want_i, want_h = glcm_kernel.glcm_sums_reference(*args)
+    assert torch.equal(isums, want_i)
+    torch.testing.assert_close(hsum, want_h, rtol=1e-6, atol=0)
+    assert torch.equal(isums, again[0]) and torch.equal(hsum, again[1])

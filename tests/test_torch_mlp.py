@@ -39,7 +39,8 @@ def test_carried_weights_give_jax_proba(hidden, activation):
     jc = jmlp.FlaxMLPClassifier(hidden_layer_sizes=hidden,
                                 activation=activation, max_iter=20,
                                 random_state=0).fit(X, y)
-    tc = tmlp.mlp_from_flax(jc._params, jc.classes_, hidden, activation)
+    tc = tmlp.mlp_from_flax(jc._params, jc.classes_, hidden, activation,
+                            device="cpu")
     np.testing.assert_allclose(tc.predict_proba(X), jc.predict_proba(X),
                                rtol=0, atol=1e-6)
     np.testing.assert_array_equal(tc.predict(X), jc.predict(X))
@@ -74,7 +75,8 @@ def test_one_epoch_matches_jax(monkeypatch, n, batch_size, alpha):
     monkeypatch.setattr(tmlp, "_init_params", inject)
     clf = tmlp.TorchMLPClassifier(hidden_layer_sizes=hidden, alpha=alpha,
                                   learning_rate_init=lr, max_iter=1,
-                                  batch_size=batch_size, random_state=seed)
+                                  batch_size=batch_size, random_state=seed,
+                                  device="cpu")
     clf.fit(X, y)
     for layer, d, d0 in zip(clf._model.layers, flax_layers(want),
                             flax_layers(params)):
@@ -105,7 +107,7 @@ def test_fit_learns_like_the_reference():
     X = rng.normal(size=(400, 4)).astype(np.float32)
     y = np.where(X[:, 0] + X[:, 1] > 0, "a", "b")
     clf = tmlp.TorchMLPClassifier(hidden_layer_sizes=(32,), max_iter=100,
-                                  random_state=0)
+                                  random_state=0, device="cpu")
     clf.fit(X[:300], y[:300])
     assert (clf.predict(X[300:]) == y[300:]).mean() > 0.9
     proba = clf.predict_proba(X[300:])
@@ -114,7 +116,8 @@ def test_fit_learns_like_the_reference():
 
 def test_predict_returns_classes():
     X, y = table(200)
-    clf = tmlp.TorchMLPClassifier(hidden_layer_sizes=(8,), max_iter=5)
+    clf = tmlp.TorchMLPClassifier(hidden_layer_sizes=(8,), max_iter=5,
+                                  device="cpu")
     clf.fit(X, y)
     assert list(clf.classes_) == ["a", "b"]
     assert set(clf.predict(X)) <= {"a", "b"}
@@ -123,7 +126,8 @@ def test_predict_returns_classes():
 
 def test_fit_cache_hits_and_misses():
     X, y = table(240, seed=1)
-    kw = dict(hidden_layer_sizes=(8,), max_iter=3, random_state=2)
+    kw = dict(hidden_layer_sizes=(8,), max_iter=3, random_state=2,
+              device="cpu")
     a = tmlp.TorchMLPClassifier(**kw).fit(X, y)
     b = tmlp.TorchMLPClassifier(**kw).fit(X, y)
     assert b._model is a._model
@@ -152,10 +156,10 @@ def test_stops_at_the_exact_epoch(monkeypatch):
     monkeypatch.setattr(tmlp.np.random, "default_rng", Counting)
     tmlp.TorchMLPClassifier(hidden_layer_sizes=(4,), learning_rate_init=0.0,
                             max_iter=50, n_iter_no_change=3,
-                            random_state=None).fit(X, y)
+                            random_state=None, device="cpu").fit(X, y)
     assert len(epochs) == 4
 
 
 def test_unfitted_predict_raises():
     with pytest.raises(RuntimeError, match="not fitted"):
-        tmlp.TorchMLPClassifier().predict_proba(np.zeros((2, 3)))
+        tmlp.TorchMLPClassifier(device="cpu").predict_proba(np.zeros((2, 3)))

@@ -1,7 +1,9 @@
-"""obia_tpu_torch runs with jax, pandas, sklearn and PIL unavailable, as on
-a machine that has only torch, numpy and scipy: the port imports none of
-them on its main paths (SLIC + forest, quickshift + MLP, the sharded mosaic
-on a 2 x 4 CPU mesh), and never loads jax, flax or optax."""
+"""obia_tpu_torch runs with jax, pandas, sklearn, PIL and the JAX package
+``obia_tpu`` unavailable, as on a machine that has only torch, numpy and
+scipy: the port imports none of them on its main paths (SLIC + forest,
+quickshift + MLP, the sharded mosaic on a 2 x 4 CPU mesh), and never loads
+jax, flax or optax. Its sources and ``chip_smoke.py`` import neither jax
+nor ``obia_tpu``."""
 import subprocess
 import sys
 import textwrap
@@ -12,7 +14,8 @@ REPO = Path(__file__).resolve().parent.parent
 SCRIPT = textwrap.dedent("""
     import builtins
     import sys
-    BLOCKED = ("jax", "jaxlib", "pandas", "sklearn", "PIL", "flax", "optax")
+    BLOCKED = ("jax", "jaxlib", "pandas", "sklearn", "PIL", "flax", "optax",
+               "obia_tpu")
     real_import = builtins.__import__
 
     def blocked(name, *a, **k):
@@ -25,9 +28,9 @@ SCRIPT = textwrap.dedent("""
     import numpy as np
     import torch
     import obia_tpu_torch
-    from obia_tpu.geometry.affine import Affine
     from obia_tpu_torch.classification.forest import (ForestArrays,
                                                       forest_proba)
+    from obia_tpu_torch.geometry.affine import Affine
     from obia_tpu_torch.handlers.geotif import image_from_array
     from obia_tpu_torch.segmentation.segment import segment
 
@@ -47,7 +50,7 @@ SCRIPT = textwrap.dedent("""
         feature=[[0, -1, -1]], threshold=[[np.median(X[:, 0]), 0, 0]],
         left=[[1, 1, 2]], right=[[2, 1, 2]],
         leaf_proba=[[[0.5, 0.5], [1.0, 0.0], [0.0, 1.0]]],
-        classes=[0, 1], max_depth=1)
+        classes=[0, 1], max_depth=1, device="cpu")
     p = forest_proba(forest, torch.as_tensor(X)).numpy()
     assert np.allclose(p.sum(1), 1.0)
 
@@ -58,7 +61,8 @@ SCRIPT = textwrap.dedent("""
     assert len(tq) > 3 and len(tq.geometry) == len(tq)
     Xq = np.nan_to_num(np.stack([tq[c] for c in tq.columns
                                  if c != "segment_id"], axis=1))
-    clf = TorchMLPClassifier(hidden_layer_sizes=(8,), max_iter=3)
+    clf = TorchMLPClassifier(hidden_layer_sizes=(8,), max_iter=3,
+                             device="cpu")
     clf.fit(Xq, Xq[:, 0] > np.median(Xq[:, 0]))
     assert np.allclose(clf.predict_proba(Xq).sum(1), 1.0, atol=1e-5)
 
@@ -87,10 +91,12 @@ def test_port_runs_without_jax_pandas_sklearn_pil(tmp_path):
 
 def test_port_sources_never_import_jax():
     bad = []
-    for path in (REPO / "obia_tpu_torch").rglob("*.py"):
+    sources = [*(REPO / "obia_tpu_torch").rglob("*.py"),
+               REPO / "chip_smoke.py"]
+    for path in sources:
         for n, line in enumerate(path.read_text().splitlines(), 1):
             words = line.strip().split()
             if words[:1] in (["import"], ["from"]) and len(words) > 1 and \
-                    words[1].split(".")[0] in ("jax", "jaxlib"):
+                    words[1].split(".")[0] in ("jax", "jaxlib", "obia_tpu"):
                 bad.append(f"{path}:{n}")
     assert not bad, bad

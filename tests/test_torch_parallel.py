@@ -36,7 +36,8 @@ def mesh():
 
 @pytest.mark.parametrize("n", [1, 2, 3, 4, 6, 8])
 def test_mesh_shape_matches_jax(n):
-    assert tmesh.make_mesh(n).shape == jsh.make_mesh(n).devices.shape
+    assert (tmesh.make_mesh(n, ["cpu"]).shape
+            == jsh.make_mesh(n).devices.shape)
 
 
 def test_mesh_keeps_shards_on_the_devices_given():

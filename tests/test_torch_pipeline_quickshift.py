@@ -103,8 +103,8 @@ def test_carried_mlp_gives_jax_proba(runs):
     clf = FlaxMLPClassifier(hidden_layer_sizes=(64,), max_iter=60,
                             random_state=0).fit((Xj - mu) / sd, y)
     want = clf.predict_proba((Xj - mu) / sd)
-    got = mlp_from_flax(clf._params, clf.classes_, (64,), "relu"
-                        ).predict_proba((Xt - mu) / sd)
+    got = mlp_from_flax(clf._params, clf.classes_, (64,), "relu",
+                        device="cpu").predict_proba((Xt - mu) / sd)
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
 
 
@@ -114,6 +114,7 @@ def test_quickshift_rejects_a_mask():
         create_segments
     image = jax_image(build_scene(h=16, w=16), Affine(1, 0, 0, 0, -1, 16))
     with pytest.raises(TypeError, match="quirk #12"):
-        create_segments(image, method="quickshift", mask=np.ones((16, 16)))
+        create_segments(image, method="quickshift", device="cpu",
+                        mask=np.ones((16, 16)))
     with pytest.raises(Exception, match="unknown segmentation method"):
-        create_segments(image, method="watershed")
+        create_segments(image, method="watershed", device="cpu")

@@ -107,7 +107,8 @@ def test_public_quickshift_matches_jax(jax_tie_noise, convert2lab):
     img = np.random.default_rng(3).random((40, 52, 3)).astype(np.float32)
     kw = dict(kernel_size=2, max_dist=6, rng=0, convert2lab=convert2lab)
     want, w_parent, w_dist = jqs.quickshift(img, return_tree=True, **kw)
-    got, parent, dist = tqs.quickshift(img, return_tree=True, **kw)
+    got, parent, dist = tqs.quickshift(img, return_tree=True,
+                                       device="cpu", **kw)
     assert got.dtype == torch.int64 and parent.dtype == torch.int64
     got, parent, dist = got.numpy(), parent.numpy(), dist.numpy()
     assert partition_agreement(got, want) >= 0.995
@@ -125,9 +126,9 @@ def test_public_quickshift_matches_jax(jax_tie_noise, convert2lab):
 def test_integer_image_scales_like_its_float_copy():
     img8 = (np.random.default_rng(0).random((40, 44, 3)) * 255).astype(
         np.uint8)
-    a = tqs.quickshift(img8, kernel_size=2, max_dist=6, rng=0)
+    a = tqs.quickshift(img8, kernel_size=2, max_dist=6, rng=0, device="cpu")
     b = tqs.quickshift(img8.astype(np.float32) / 255.0, kernel_size=2,
-                       max_dist=6, rng=0)
+                       max_dist=6, rng=0, device="cpu")
     assert torch.equal(a, b) and len(torch.unique(a)) > 1
 
 
@@ -137,7 +138,7 @@ def test_matches_naive_oracle(jax_tie_noise):
     rng = np.random.default_rng(42)
     img = rng.random((18, 22, 2)).astype(np.float32)
     got = tqs.quickshift(img, ratio=1.0, kernel_size=2.0, max_dist=4.0,
-                         random_seed=3).numpy()
+                         random_seed=3, device="cpu").numpy()
     want = naive_quickshift(np.asarray(img, np.float64), 1.0, 2.0, 4.0,
                             jax_noise(3, (18, 22)))
     idx = rng.integers(0, got.size, size=(2000, 2))
@@ -156,7 +157,8 @@ def test_tie_noise_is_seeded_and_device_independent():
 
 def test_sigma_not_ported():
     with pytest.raises(NotImplementedError, match="sigma"):
-        tqs.quickshift(np.zeros((8, 8, 3), np.float32), sigma=1.0)
+        tqs.quickshift(np.zeros((8, 8, 3), np.float32), sigma=1.0,
+                       device="cpu")
 
 
 def test_cpu_tensor_takes_twin_and_counts_no_launch():
