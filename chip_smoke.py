@@ -27,18 +27,20 @@ Phases, in order; any failure raises and exits non-zero:
    magnitude;
 6. hold the quickshift density and parent kernels against their twins on
    edge-case scenes (ragged 70x300 C=3, 96x80 C=1, 64x64 C=8, a constant
-   plateau) at radii 3, 15 and the largest the wrappers take: density within
-   rtol 1e-6, parent outputs exactly equal given the twin's rho, and the
-   kernel pipeline's roots against the twin pipeline's (partition agreement
-   >= 0.995); one radius past the largest must raise;
+   plateau) at radii 3, 15 and the density's largest, max_dist 0.6 r:
+   density within rtol 1e-6, parent outputs exactly equal given the twin's
+   rho, and the kernel pipeline's roots against the twin pipeline's
+   (partition agreement >= 0.995); each kernel one past its own limit must
+   raise (the density on r, the parent on its disk's radius rp);
 7. drive the config-2 slice of ``bench.py`` at 1024^2 RGB on the card:
    ``segment(method="quickshift", ratio=1.0, kernel_size=5, max_dist=10.0)``
    (spectral + GLCM features of the 3 bands) and a (64,) MLP fitted for
    max_iter=60, then ``predict_proba``, once cold (profiled) and once warm,
    with the launch counts read around the warm run; a profiled warm run;
    both quickshift kernels against their twins at 1024^2 and at
-   4096^2, and the GLCM sums kernel at this slice's object count, all timed
-   with CUDA events;
+   4096^2, and on the 8 bands of the config-4 scene at 1024^2 (the same
+   radius and max_dist), and the GLCM sums kernel at this slice's object
+   count, all timed with CUDA events;
 8. cross-check: the config-2 slice at 256^2 on the card and on the CPU:
    object counts within 1%, label partitions agreeing on >= 99.5% of the
    pixels, column means as in phase 5;
@@ -63,12 +65,19 @@ Phases, in order; any failure raises and exits non-zero:
 12. cross-check: config 5 at 768^2 (``bench.py``'s default size for it) on
    the card and on the CPU, as in phase 8.
 
-The last two lines are a JSON object of the kernels' launches, errors,
-times and bounds, and ``{"ok": true, "device": {...}}``. A kernel's
-``bound_ms`` is the larger of the bytes it must move (each input read once,
-each output written once; a band counts its own 4 bytes a pixel) over
-3.35 TB/s and its operations over 67 TFLOP/s (float32, exp counted as one
-operation), from this run's shapes. ``glcm_sums`` also reports
+After the build a line gives the quickshift kernels' registers, spilled
+bytes and pixels a thread (P) as the library reports them. The last two
+lines are a JSON object of the kernels' launches, errors, times and bounds,
+and ``{"ok": true, "device": {...}}``. A kernel's ``bound_ms`` is the larger
+of the bytes it must move (each input read once, each output written once;
+a band counts its own 4 bytes a pixel) over 3.35 TB/s and its operations
+over 67 TFLOP/s float32, from this run's shapes. The quickshift scans count
+the pixel-offset pairs whose neighbour lies in the image (the parent's
+offsets only those of the max_dist disk) at 3C + 4 float32 operations, and
+the density's exponentials apart, over the SFU's 16 a clock per SM (4.18 T/s
+at 1.98 GHz); their ``bound_term`` names the larger term ("fp32", "sfu" or
+"bytes"; ``bound_by`` says "operations" for either of the first two).
+``glcm_sums`` also reports
 ``bound_ms_layout``: the same with the band charged the 32-byte sectors that
 hold it in the interleaved (H, W, C) image, the least a kernel that reads
 the band in place can take. No one
@@ -103,6 +112,7 @@ C5_CROSS_SIZE = 768     # bench.py's default size for config 5
 C5_SHARDS = 8           # the 2 x 4 mesh
 HBM_BYTES_PER_MS = 3.35e9   # H100 SXM: 3.35 TB/s
 FP32_OPS_PER_MS = 67e9      # H100 SXM: 67 TFLOP/s float32 outside the MMAs
+SFU_OPS_PER_MS = 132 * 16 * 1.98e6  # 132 SMs x 16 exponentials a clock
 
 
 def log(msg: str) -> None:
@@ -348,15 +358,32 @@ def hist_bound_ms(calls) -> float:
     return total / HBM_BYTES_PER_MS
 
 
-def qs_bound_ms(x, radius: int, outputs: int) -> float:
-    """Least time of a quickshift window scan: (2r+1)^2 - 1 neighbours a
-    pixel at 3C + 4 float32 operations each (d2, then the weight or the
-    comparisons) over 67 TFLOP/s, or the image, rho and ``outputs`` planes
-    moved once over 3.35 TB/s, whichever is longer."""
+def qs_bound(x, radius: int, max_dist=None) -> dict:
+    """Least time of a quickshift window scan over the (C, H, W) image:
+    the density (``max_dist`` None) over its (2r+1)^2 - 1 window, the parent
+    over the offsets of its max_dist disk, each counting the pixel-offset
+    pairs whose neighbour lies in the image. The longest of: 3C + 4 float32
+    operations a pair (d2, then the weight or the comparisons) over
+    67 TFLOP/s ("fp32"); the density's one exponential a pair over the
+    SFU's 4.18 T/s ("sfu"); the image and rho read and the outputs written
+    once over 3.35 TB/s ("bytes"). Returns bound_ms, bound_by, bound_term
+    and the pairs."""
+    from obia_tpu_torch.ops import quickshift_kernel as qk
     C, H, W = x.shape
-    ops = H * W * ((2 * radius + 1) ** 2 - 1) * (3 * C + 4)
-    nbytes = 4 * H * W * (C + 1 + outputs)
-    return max(ops / FP32_OPS_PER_MS, nbytes / HBM_BYTES_PER_MS)
+    if max_dist is None:
+        offsets, outputs = qk.window_offsets(radius), 0
+    else:
+        offsets, outputs = qk.disk_offsets(radius, max_dist), 2
+    offsets = np.abs(offsets.astype(np.int64))
+    pairs = int((np.clip(H - offsets[:, 0], 0, None)
+                 * np.clip(W - offsets[:, 1], 0, None)).sum())
+    terms = {"fp32": pairs * (3 * C + 4) / FP32_OPS_PER_MS,
+             "sfu": (pairs if max_dist is None else 0) / SFU_OPS_PER_MS,
+             "bytes": 4 * H * W * (C + 1 + outputs) / HBM_BYTES_PER_MS}
+    term = max(terms, key=terms.get)
+    return {"bound_ms": terms[term],
+            "bound_by": "bytes" if term == "bytes" else "operations",
+            "bound_term": term, "pairs": pairs}
 
 
 def compare_hist(calls, what: str) -> int:
@@ -645,8 +672,10 @@ def qs_compare(x, radius: int, k: float, md: float, noise, what: str):
 
 
 def qs_inputs(scene: np.ndarray):
-    """The scaled (C, H, W) Lab image and tie noise that config 2's
-    segment() hands the quickshift kernels."""
+    """The scaled (C, H, W) image and tie noise that config 2's segment()
+    hands the quickshift kernels for this (H, W, C) scene: Lab of three
+    bands, the normalised bands themselves otherwise (as ``quickshift``
+    converts only a three-band image)."""
     import torch
 
     from obia_tpu_torch.ops.color import rgb_to_lab
@@ -654,8 +683,10 @@ def qs_inputs(scene: np.ndarray):
     from obia_tpu_torch.segmentation.segment_boundaries import \
         _normalize_select
     img = _normalize_select(torch.as_tensor(scene, device="cuda").float(),
-                            [0, 1, 2])
-    x = (rgb_to_lab(img) * QS_KW["ratio"]).permute(2, 0, 1).contiguous()
+                            list(range(scene.shape[2])))
+    if scene.shape[2] == 3:
+        img = rgb_to_lab(img)
+    x = (img * QS_KW["ratio"]).permute(2, 0, 1).contiguous()
     return x, _tie_noise(42, scene.shape[:2], "cuda")
 
 
@@ -767,6 +798,14 @@ def main() -> None:
     native.load()
     log(f"native library built and loaded: {host_lib.relative_to(ROOT)} in "
         f"{time.perf_counter() - t0:.2f} s (g++)")
+    for C in (1, 3, 8, 9):
+        a = qk.kernel_attributes(C)
+        log(f"quickshift kernels, C={C}: " + "; ".join(
+            f"{k} {v['registers']} registers, {v['local_bytes']} B local, "
+            f"P = {v['strip']}" for k, v in a.items()))
+        if {v["strip"] for v in a.values()} != {qk.STRIP}:
+            raise AssertionError(f"kernel strip {a} != the wrapper's "
+                                 f"{qk.STRIP}")
 
     # -- 3. GLCM sums kernel vs twin: edge cases, small objects, one big ----
     img, lab, K = edge_case_scene()
@@ -851,13 +890,20 @@ def main() -> None:
         for r in (3, 15, r_max):
             e = qs_compare(x, r, r / 3.0, 0.6 * r, noise, name)
             qs_err = [max(qs_err[0], e[0]), max(qs_err[1], e[1])]
-        try:
-            qk.quickshift_parent(x, noise + 1.0, r_max + 1, 1.0)
-        except ValueError as exc:
-            log(f"  {name}, r={r_max + 1}: raises ({exc})")
-        else:
-            raise AssertionError(f"radius {r_max + 1} past the limit did "
-                                 f"not raise ({name})")
+        rp_max = qk.max_radius(C, parent=True)
+        for what, call in (
+                (f"density r={r_max + 1}",
+                 lambda: qk.quickshift_density(x, r_max + 1, 1.0)),
+                (f"parent rp={rp_max + 1}",
+                 lambda: qk.quickshift_parent(x, noise + 1.0, rp_max + 1,
+                                              rp_max + 1.5))):
+            try:
+                call()
+            except ValueError as exc:
+                log(f"  {name}, {what}: raises ({exc})")
+            else:
+                raise AssertionError(f"{what} past the kernel's limit did "
+                                     f"not raise ({name})")
 
     # -- 7. the config-2 slice at its own size ----------------------------
     image2 = as_image(build_scene(h=QS_SIZE, w=QS_SIZE))
@@ -893,8 +939,11 @@ def main() -> None:
         x2, noise2, f"{QS_SIZE}^2 C=3 r=15", 20)
     qs_err = [max(qs_err[0], e_rho), max(qs_err[1], e_par)]
     xb, noiseb = qs_inputs(build_scene(h=QS_BIG, w=QS_BIG))
-    qs_time(xb, noiseb, f"{QS_BIG}^2 C=3 r=15", 5)
+    qs_big = qs_time(xb, noiseb, f"{QS_BIG}^2 C=3 r=15", 5)
     del xb, noiseb
+    x8, noise8 = qs_inputs(config4_scene(QS_SIZE))
+    qs_c8 = qs_time(x8, noise8, f"{QS_SIZE}^2 C=8 r=15", 20)
+    qs_err = [max(qs_err[0], qs_c8[0]), max(qs_err[1], qs_c8[1])]
     args2 = glcm_inputs(image2.device_tensor("cuda"), s2.layer.labels_dev,
                         n2, 0)
     err = max(err, compare_kernel(args2, f"config-2 {QS_SIZE}^2 band 0"))
@@ -995,7 +1044,10 @@ def main() -> None:
                 f"config 5 {C5_CROSS_SIZE}^2")
 
     log(card_line())
-    qs_r = 15  # the radius qs_time measures at
+    qs_r, qs_md = 15, QS_KW["max_dist"]  # as qs_time measures
+    qd_bound, qp_bound = qs_bound(x2, qs_r), qs_bound(x2, qs_r, qs_md)
+    log(f"quickshift bounds at {QS_SIZE}^2: density {qd_bound}, parent "
+        f"{qp_bound}")
     log(json.dumps({"kernels": [
         {"name": "glcm_sums", "route": "cuda",
          "source": "obia_tpu_torch/csrc/glcm.cu",
@@ -1013,15 +1065,19 @@ def main() -> None:
          "replaces": "obia_tpu/ops/quickshift_pallas.py:118",
          "launches": qs_launches["qs_density"], "max_abs_err": qs_err[0],
          "ms": qs_ms, "plain_ms": qs_plain,
-         "bound_ms": qs_bound_ms(x2, qs_r, 0), "bound_by": "operations",
-         "library_ms": None},
+         "bound_ms": qd_bound["bound_ms"], "bound_by": qd_bound["bound_by"],
+         "bound_term": qd_bound["bound_term"], "library_ms": None,
+         "ms_4096": qs_big[2], "plain_ms_4096": qs_big[3],
+         "ms_c8": qs_c8[2], "plain_ms_c8": qs_c8[3]},
         {"name": "qs_parent", "route": "cuda",
          "source": "obia_tpu_torch/csrc/quickshift.cu",
          "replaces": "obia_tpu/ops/quickshift_pallas.py:144",
          "launches": qs_launches["qs_parent"], "max_abs_err": qs_err[1],
          "ms": qp_ms, "plain_ms": qp_plain,
-         "bound_ms": qs_bound_ms(x2, qs_r, 2), "bound_by": "operations",
-         "library_ms": None},
+         "bound_ms": qp_bound["bound_ms"], "bound_by": qp_bound["bound_by"],
+         "bound_term": qp_bound["bound_term"], "library_ms": None,
+         "ms_4096": qs_big[4], "plain_ms_4096": qs_big[5],
+         "ms_c8": qs_c8[4], "plain_ms_c8": qs_c8[5]},
         {"name": "glcm_hist", "route": "cuda",
          "source": "obia_tpu_torch/csrc/glcm.cu",
          "replaces": "obia_tpu/ops/glcm_pallas.py:258",

@@ -117,9 +117,12 @@ def load() -> ctypes.CDLL:
                                            ll, i, ctypes.POINTER(i), i, p, p]
             lib.obia_glcm_hist.restype = i
             f = ctypes.c_float
-            lib.obia_qs_density.argtypes = [p, i, ll, ll, i, i, f, p, p]
+            lib.obia_qs_density.argtypes = [p, i, ll, ll, i, i, i, f, p, p]
             lib.obia_qs_density.restype = i
-            lib.obia_qs_parent.argtypes = [p, p, i, ll, ll, i, i, f, p, p, p]
+            lib.obia_qs_parent.argtypes = [p, p, i, ll, ll, i, i, i, f, p, p,
+                                           p]
             lib.obia_qs_parent.restype = i
+            lib.obia_qs_attributes.argtypes = [i, i, ctypes.POINTER(i)]
+            lib.obia_qs_attributes.restype = i
             _lib = lib
         return _lib

@@ -20,10 +20,19 @@ CPU tensor it runs its twin. Both sides accumulate in the same row-major
 offset order and form ``d2`` in the same operation order, so given the same
 ``rho`` the parent scans agree bitwise and the densities to the last bits
 of ``expf``.
+
+The parent kernel scans only the offsets of the ``max_dist`` disk
+(:func:`parent_extents`): ``d2`` is the colour sum (>= 0) plus the exact
+``dy^2 + dx^2``, so an offset outside the disk never passes
+``d2 <= max_dist^2``. Its halo radius is the disk's, ``rp``, so its tile
+shape and radius limit follow ``rp``, the density's follow ``r``
+(:func:`tile_shape`, :func:`max_radius`). The twins keep the full window.
 """
 from __future__ import annotations
 
-from typing import Tuple
+import ctypes
+import math
+from typing import List, Tuple
 
 import numpy as np
 import torch
@@ -32,8 +41,9 @@ import torch.nn.functional as F
 # kernel launches in this process, by kernel; the twins never count
 launches = {"qs_density": 0, "qs_parent": 0}
 
-TILE_W = 32                       # tile width: one warp along a row
-TILE_HEIGHTS = (16, 8, 4, 2, 1)   # tried in order; the first that fits
+STRIP = 5                         # pixels a thread (QS_P in the kernel)
+LANES = (32, 16, 8, 4)            # threads along a tile row (blockDim.x)
+TILE_HEIGHTS = (16, 8, 4, 2, 1)   # rows of threads (blockDim.y)
 SMEM_LIMIT = 232448               # bytes of shared memory a block may use
 
 
@@ -51,33 +61,80 @@ def _f32(x: float) -> float:
     return float(np.float32(x))
 
 
-def _fits(planes: int, th: int, radius: int) -> bool:
-    """Whether a halo of ``planes`` float32 planes fits in shared memory."""
-    return 4 * planes * (th + 2 * radius) * (TILE_W + 2 * radius) \
+def _fits(planes: int, lanes: int, th: int, radius: int) -> bool:
+    """Whether the halo of a tile of ``th`` rows of ``lanes`` strips, in
+    ``planes`` float32 planes, fits in one block's shared memory."""
+    return 4 * planes * (th + 2 * radius) * (lanes * STRIP + 2 * radius) \
         <= SMEM_LIMIT
 
 
-def tile_height(C: int, radius: int, parent: bool) -> int:
-    """Tile height for a scan of C channels at this radius: the first of
-    ``TILE_HEIGHTS`` whose shared-memory halo (C planes, plus rho for the
-    parent scan) fits. Raises ValueError when none does."""
+def tile_shape(C: int, radius: int, parent: bool) -> Tuple[int, int]:
+    """``(lanes, th)`` of a scan of C channels with a halo of this radius
+    (the window's ``r`` for the density, the disk's ``rp`` for the parent):
+    a block of ``th`` rows of ``lanes`` threads, each a strip of ``STRIP``
+    pixels. Of the shapes whose halo (C planes, plus rho for the parent)
+    fits, the one that loads the fewest halo floats an output pixel, the
+    wider and then the taller on a tie. Raises ValueError when none fits."""
     planes = C + 1 if parent else C
-    for th in TILE_HEIGHTS:
-        if _fits(planes, th, radius):
-            return th
-    kind = "parent" if parent else "density"
-    raise ValueError(
-        f"quickshift {kind} kernel: radius {radius} with {C} channels needs "
-        f"a shared-memory halo over {SMEM_LIMIT} bytes even at tile height "
-        f"1 (the largest radius for {C} channels is {max_radius(C)})")
+    best = None
+    for lanes in LANES:
+        for th in TILE_HEIGHTS:
+            if not _fits(planes, lanes, th, radius):
+                continue
+            w = lanes * STRIP
+            cost = (th + 2 * radius) * (w + 2 * radius) / (th * w)
+            if best is None or cost < best[0]:
+                best = (cost, lanes, th)
+    if best is None:
+        kind, what = (("parent", "min(radius, floor(max_dist))") if parent
+                      else ("density", "radius"))
+        raise ValueError(
+            f"quickshift {kind} kernel: {what} = {radius} with {C} channels "
+            f"needs a shared-memory halo over {SMEM_LIMIT} bytes even in the "
+            f"smallest tile (the largest radius for {C} channels is "
+            f"{max_radius(C, parent)})")
+    return best[1], best[2]
 
 
-def max_radius(C: int) -> int:
-    """The largest window radius both kernels take for C channels."""
+def max_radius(C: int, parent: bool = False) -> int:
+    """The largest halo radius the density (``r``) or the parent kernel
+    (``rp``) takes for C channels: the smallest tile's."""
+    planes = C + 1 if parent else C
     r = 0
-    while _fits(C + 1, 1, r + 1):
+    while _fits(planes, LANES[-1], 1, r + 1):
         r += 1
     return r
+
+
+def parent_extents(radius: int, max_dist: float) -> Tuple[int, List[int]]:
+    """``(rp, widths)`` of the parent kernel's scan: ``rp`` is the largest
+    ``w <= radius`` with ``w^2 <= max_d2`` (``max_dist^2`` rounded to
+    float32), i.e. ``min(radius, floor(max_dist))``, and ``widths[dy + rp]``
+    the largest ``w <= rp`` with ``dy^2 + w^2 <= max_d2``, for
+    ``dy = -rp .. rp``: the kernel visits ``|dx| <= widths[dy + rp]`` of row
+    ``dy``, in integers against the float32 ``max_d2`` as here."""
+    r = _check_radius(radius)
+    max_d2 = _f32(max_dist * max_dist)
+    rp = 0
+    while rp < r and (rp + 1) ** 2 <= max_d2:
+        rp += 1
+    widths = []
+    for dy in range(-rp, rp + 1):
+        w = rp
+        while w > 0 and dy * dy + w * w > max_d2:
+            w -= 1
+        widths.append(w)
+    return rp, widths
+
+
+def disk_offsets(radius: int, max_dist: float) -> np.ndarray:
+    """(n, 2) int32 (dy, dx) that the parent kernel visits, in its row-major
+    order, without (0, 0): the window offsets with
+    ``dy^2 + dx^2 <= max_dist^2`` (see :func:`parent_extents`)."""
+    rp, widths = parent_extents(radius, max_dist)
+    return np.asarray([(dy, dx) for dy, w in zip(range(-rp, rp + 1), widths)
+                       for dx in range(-w, w + 1) if (dy, dx) != (0, 0)],
+                      np.int32).reshape(-1, 2)
 
 
 def _check(img: torch.Tensor) -> Tuple[int, int, int]:
@@ -102,21 +159,26 @@ def _stream(t: torch.Tensor) -> int:
 
 def quickshift_density(img: torch.Tensor, radius: int,
                        kernel_size: float) -> torch.Tensor:
-    """(H, W) float32 density of the (C, H, W) scaled image."""
+    """(H, W) float32 density of the (C, H, W) scaled image. On the card a
+    NaN ``kernel_size`` raises: the kernel drops a term whose exponent is
+    NaN, where the twin, on the CPU, sums it and returns NaN everywhere
+    (``quickshift`` cannot pass one: its radius is ceil(3k))."""
     if img.device.type == "cpu":
         return quickshift_density_reference(img, radius, kernel_size)
     if img.device.type != "cuda":
         raise ValueError(f"quickshift_density: unsupported device "
                          f"{img.device}")
+    if math.isnan(kernel_size):
+        raise ValueError("kernel_size is NaN")
     C, H, W = _check(img)
     r = _check_radius(radius)
-    th = tile_height(C, r, parent=False)
+    lanes, th = tile_shape(C, r, parent=False)
     rho = torch.empty((H, W), dtype=torch.float32, device=img.device)
     from .. import _build
     lib = _build.load()
     with torch.cuda.device(img.device):
         status = lib.obia_qs_density(
-            img.data_ptr(), C, H, W, r, th,
+            img.data_ptr(), C, H, W, r, lanes, th,
             _f32(1.0 / (2.0 * kernel_size * kernel_size)), rho.data_ptr(),
             _stream(img))
     if status != 0:
@@ -142,15 +204,15 @@ def quickshift_parent(img: torch.Tensor, rho: torch.Tensor, radius: int,
             or not rho.is_contiguous():
         raise ValueError(f"rho must be a contiguous float32 {(H, W)} "
                          f"tensor, got {rho.dtype} {tuple(rho.shape)}")
-    r = _check_radius(radius)
-    th = tile_height(C, r, parent=True)
+    rp, _ = parent_extents(radius, max_dist)
+    lanes, th = tile_shape(C, rp, parent=True)
     best_d2 = torch.empty((H, W), dtype=torch.float32, device=img.device)
     doff = torch.empty((H, W), dtype=torch.int32, device=img.device)
     from .. import _build
     lib = _build.load()
     with torch.cuda.device(img.device):
         status = lib.obia_qs_parent(
-            img.data_ptr(), rho.data_ptr(), C, H, W, r, th,
+            img.data_ptr(), rho.data_ptr(), C, H, W, rp, lanes, th,
             _f32(max_dist * max_dist), best_d2.data_ptr(), doff.data_ptr(),
             _stream(img))
     if status != 0:
@@ -158,6 +220,24 @@ def quickshift_parent(img: torch.Tensor, rho: torch.Tensor, radius: int,
                            f"error {status}")
     launches["qs_parent"] += 1
     return best_d2, doff
+
+
+def kernel_attributes(C: int) -> dict:
+    """``{"density": {...}, "parent": {...}}``: each kernel's registers and
+    spilled (local) bytes a thread at C channels, and its pixels a thread,
+    as the loaded CUDA library reports them (``cudaFuncGetAttributes``)."""
+    from .. import _build
+    fn = _build.load().obia_qs_attributes
+    out = {}
+    for parent, kind in ((0, "density"), (1, "parent")):
+        vals = (ctypes.c_int * 3)()
+        status = fn(parent, C, vals)
+        if status != 0:
+            raise RuntimeError(f"quickshift {kind} kernel attributes: CUDA "
+                               f"error {status}")
+        out[kind] = {"registers": vals[0], "local_bytes": vals[1],
+                     "strip": vals[2]}
+    return out
 
 
 def _d2(img: torch.Tensor, sh: torch.Tensor, off2: int) -> torch.Tensor:
@@ -192,17 +272,25 @@ def quickshift_parent_reference(img: torch.Tensor, rho: torch.Tensor,
                                 radius: int, max_dist: float
                                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain-torch twin of the parent kernel: full-raster shifted slices of
-    the +inf-padded image and the -inf-padded rho, strict-< updates in
-    row-major offset order."""
+    the +inf-padded image and the -inf-padded rho over the whole window,
+    strict-< updates in row-major offset order."""
+    return _parent_scan(img, rho, window_offsets(_check_radius(radius)),
+                        max_dist)
+
+
+def _parent_scan(img: torch.Tensor, rho: torch.Tensor, offsets: np.ndarray,
+                 max_dist: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The parent twin's scan over ``offsets`` ((n, 2) (dy, dx)), in their
+    order."""
     C, H, W = img.shape
-    r = _check_radius(radius)
+    r = int(np.abs(offsets).max()) if len(offsets) else 0
     max_d2 = _f32(max_dist * max_dist)
     pad = F.pad(img, (r, r, r, r), value=float("inf"))
     pad_rho = F.pad(rho[None], (r, r, r, r), value=float("-inf"))[0]
     best = torch.full((H, W), float("inf"), dtype=torch.float32,
                       device=img.device)
     doff = torch.zeros((H, W), dtype=torch.int32, device=img.device)
-    for dy, dx in window_offsets(r).tolist():
+    for dy, dx in offsets.tolist():
         sh = pad[:, r + dy:r + dy + H, r + dx:r + dx + W]
         d2 = _d2(img, sh, dy * dy + dx * dx)
         nb_rho = pad_rho[r + dy:r + dy + H, r + dx:r + dx + W]

@@ -181,6 +181,13 @@ def test_unsupported_device_raises():
         qk.quickshift_parent(img, torch.zeros((8, 8), device="meta"), 2, 1.0)
 
 
+def test_nan_kernel_size_gives_a_nan_density_on_the_cpu():
+    """The twin sums the NaN terms of a NaN kernel_size, so its density is
+    NaN everywhere; the card's wrapper raises instead (a ``cuda`` case)."""
+    rho = qk.quickshift_density(torch.zeros((3, 8, 8)), 2, float("nan"))
+    assert bool(torch.isnan(rho).all())
+
+
 def test_non_finite_pixels_drop_out():
     """A NaN pixel neither adds to its neighbours' density nor becomes a
     parent; it is a root with density 1 (the JAX isfinite mask)."""
@@ -195,14 +202,99 @@ def test_non_finite_pixels_drop_out():
 
 
 def test_tile_choice_and_radius_limit():
-    assert qk.tile_height(3, 15, parent=True) == 16
-    assert qk.tile_height(8, 30, parent=True) == 8
+    # config 2: the density's halo is r = 15, the parent's rp = 10
+    assert qk.tile_shape(3, 15, parent=False) == (32, 16)
+    assert qk.parent_extents(15, 10.0)[0] == 10
+    assert qk.tile_shape(3, 10, parent=True) == (32, 16)
+    # eight bands: narrower tiles keep 16 rows where 32 lanes would fit 2
+    assert qk.tile_shape(8, 15, parent=True) == (16, 16)
+    assert qk.tile_shape(8, 30, parent=True) == (4, 16)
+    assert qk.tile_shape(3, 42, parent=False) == (16, 16)
     for C in (1, 3, 8):
-        r = qk.max_radius(C)
-        assert r >= 30
-        qk.tile_height(C, r, parent=True)
-        with pytest.raises(ValueError, match="largest radius"):
-            qk.tile_height(C, r + 1, parent=True)
+        for parent in (False, True):
+            r = qk.max_radius(C, parent)
+            assert r >= 30
+            qk.tile_shape(C, r, parent=parent)
+            with pytest.raises(ValueError, match="largest radius"):
+                qk.tile_shape(C, r + 1, parent=parent)
+        assert qk.max_radius(C, True) < qk.max_radius(C, False)
+    # the parent's limit binds rp, not r: a window past it with a short
+    # max_dist still fits
+    r = qk.max_radius(3, parent=True) + 5
+    rp, _ = qk.parent_extents(r, 4.5)
+    assert rp == 4 and qk.tile_shape(3, rp, parent=True) == (32, 16)
+
+
+@pytest.mark.parametrize("C", range(1, 10))
+def test_every_radius_a_one_pixel_tile_took_still_fits(C):
+    """A tile of 32 one-pixel threads a row, with the image and rho halos of
+    both scans, took every radius up to the largest whose one-row halo fit;
+    both strip kernels take all of them, and their shape stays in bounds."""
+    planes = C + 1
+    old = 0
+    while 4 * planes * (2 * old + 3) * (32 + 2 * old + 2) <= qk.SMEM_LIMIT:
+        old += 1
+    for parent in (False, True):
+        assert qk.max_radius(C, parent) >= old
+        for r in (1, old // 2, old):
+            lanes, th = qk.tile_shape(C, r, parent)
+            assert lanes in qk.LANES and th in qk.TILE_HEIGHTS
+            assert qk._fits(planes if parent else C, lanes, th, r)
+
+
+@pytest.mark.parametrize("radius,max_dist", [
+    (15, 10.0), (3, 2.5), (4, 9.0), (6, 0.6), (5, 1.0), (7, 10 ** 0.5),
+    (2, 0.0), (3, -2.5), (4, float("inf")), (4, float("nan"))])
+def test_parent_extents_are_the_disk(radius, max_dist):
+    """rp and the row widths hold exactly the window offsets with
+    dy^2 + dx^2 <= max_dist^2 (float32), and only those."""
+    rp, widths = qk.parent_extents(radius, max_dist)
+    max_d2 = float(np.float32(max_dist * max_dist))
+    want = [(dy, dx) for dy, dx in qk.window_offsets(radius).tolist()
+            if dy * dy + dx * dx <= max_d2]
+    got = [tuple(o) for o in qk.disk_offsets(radius, max_dist).tolist()]
+    assert got == want  # the same offsets in the same order
+    assert len(widths) == 2 * rp + 1 and 0 <= rp <= radius
+    assert all(abs(dy) <= rp and abs(dx) <= widths[dy + rp]
+               for dy, dx in got)
+    if radius == 15 and max_dist == 10.0:
+        assert len(got) == 316  # config 2: 316 of the 960 offsets
+
+
+def pruning_scene(kind):
+    """(C, H, W) image and noised density for a pruning case."""
+    rng = np.random.default_rng(21)
+    img = rng.random((3, 23, 37)).astype(np.float32)
+    if kind == "plateau":
+        img[:] = 0.5
+    if kind == "quantised":  # many exact colour ties: d2 == off2 happens
+        img = np.floor(img * 3) / 3
+    if kind == "nan_inf":
+        img[:, 11, 17] = np.nan
+        img[1, 4, 30] = np.inf
+        img[:, 20, 2] = -np.inf
+    x = torch.tensor(img.astype(np.float32))
+    noise = torch.tensor(rng.normal(0, 1e-5, (23, 37)).astype(np.float32))
+    return x, qk.quickshift_density_reference(x, 6, 2.0) + noise
+
+
+@pytest.mark.parametrize("kind,radius,max_dist", [
+    ("random", 6, 4.0), ("plateau", 6, 4.0), ("nan_inf", 6, 4.0),
+    ("random", 6, 3.7), ("quantised", 6, 10 ** 0.5), ("random", 4, 9.0),
+    ("random", 5, 0.6), ("quantised", 6, 5.0)])
+def test_parent_pruned_to_the_disk_is_exact(kind, radius, max_dist):
+    """The parent scan over the disk's offsets alone equals the scan over
+    the whole window, bitwise: non-integer max_dist, max_dist > r and
+    max_dist < 1 (every pixel a root) included."""
+    x, rho = pruning_scene(kind)
+    d2, doff = qk._parent_scan(x, rho, qk.disk_offsets(radius, max_dist),
+                               max_dist)
+    w_d2, w_doff = qk.quickshift_parent_reference(x, rho, radius, max_dist)
+    assert torch.equal(d2, w_d2) and torch.equal(doff, w_doff)
+    if max_dist < 1:
+        assert not bool(doff.any()) and bool(torch.isinf(d2).all())
+    else:
+        assert bool(doff.any())
 
 
 def edge_scenes():
@@ -243,3 +335,77 @@ def test_cuda_kernels_match_twins(cuda_device, scene, radius):
     assert qk.launches["qs_density"] == before["qs_density"] + 1
     assert qk.launches["qs_parent"] == before["qs_parent"] + 1
     assert torch.equal(d2, w_d2) and torch.equal(doff, w_doff)
+
+
+def strip_cases():
+    """(C, H, W, r, max_dist) for the strip kernels: widths that are not a
+    multiple of P or of 32, widths under P, r in {1, 3, 15, 30, 42, limit}
+    (tiles of 32, 16, 8 and 4 lanes), max_dist below 1, between and above r
+    and inf, C in {1, 3, 8, 9} (9: the generic path). "limit" is the
+    density's largest r for C, with the parent's rp at its own largest."""
+    return {
+        "c3_9x37_r1_md0.5": (3, 9, 37, 1, 0.5),
+        "c3_20x3_r3_md2.5": (3, 20, 3, 3, 2.5),
+        "c2_1x7_r3_md3": (2, 1, 7, 3, 3.0),
+        "c1_33x161_r3_md10": (1, 33, 161, 3, 10.0),
+        "c3_35x320_r6_md4": (3, 35, 320, 6, 4.0),
+        "c4_21x163_r7_mdsqrt10": (4, 21, 163, 7, 10 ** 0.5),
+        "c8_17x45_r15_md7.3": (8, 17, 45, 15, 7.3),
+        "c3_40x170_r15_md10": (3, 40, 170, 15, 10.0),
+        "c9_12x50_r3_md2": (9, 12, 50, 3, 2.0),
+        "c9_16x33_r5_md9": (9, 16, 33, 5, 9.0),
+        "c3_24x50_r4_mdinf": (3, 24, 50, 4, float("inf")),
+        "c1_5x1_r3_md3": (1, 5, 1, 3, 3.0),
+        "c8_40x90_r30_md30.5": (8, 40, 90, 30, 30.5),
+        "c3_30x100_r42_md42.5": (3, 30, 100, 42, 42.5),
+        "c1_20x70_limit": (1, 20, 70, "limit", None),
+        "c3_12x165_limit": (3, 12, 165, "limit", None),
+        "c8_10x40_limit": (8, 10, 40, "limit", None),
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(strip_cases()))
+@pytest.mark.parametrize("nan", [False, True])
+def test_cuda_strip_kernels_match_twins(cuda_device, case, nan):
+    C, H, W, r, md = strip_cases()[case]
+    if r == "limit":
+        r, md = qk.max_radius(C), qk.max_radius(C, parent=True) + 0.5
+    rng = np.random.default_rng(H * W + C)
+    img = rng.random((C, H, W)).astype(np.float32)
+    if nan:
+        img[:, H // 2, W // 2] = np.nan
+        img[0, 0, W - 1] = np.inf
+    x = torch.tensor(img, device=cuda_device)
+    k = r / 3.0
+    before = dict(qk.launches)
+    rho = qk.quickshift_density(x, r, k)
+    want = qk.quickshift_density_reference(x, r, k)
+    torch.testing.assert_close(rho, want, rtol=1e-6, atol=0)
+    rho_n = want + torch.tensor(rng.normal(0, 1e-5, (H, W)).astype(
+        np.float32), device=cuda_device)
+    d2, doff = qk.quickshift_parent(x, rho_n, r, md)
+    w_d2, w_doff = qk.quickshift_parent_reference(x, rho_n, r, md)
+    torch.cuda.synchronize()
+    assert qk.launches["qs_density"] == before["qs_density"] + 1
+    assert qk.launches["qs_parent"] == before["qs_parent"] + 1
+    assert torch.equal(d2, w_d2) and torch.equal(doff, w_doff)
+    if md < 1:
+        assert not bool(doff.any())
+
+
+@pytest.mark.cuda
+def test_cuda_each_kernel_raises_past_its_own_limit(cuda_device):
+    for C in (1, 3, 8):
+        x = torch.zeros((C, 8, 8), device=cuda_device)
+        r_d, r_p = qk.max_radius(C), qk.max_radius(C, parent=True)
+        with pytest.raises(ValueError, match="largest radius"):
+            qk.quickshift_density(x, r_d + 1, 1.0)
+        with pytest.raises(ValueError, match="largest radius"):
+            qk.quickshift_parent(x, x[0], r_p + 1, r_p + 1.5)
+        # a window past the parent's limit with a short max_dist fits
+        qk.quickshift_parent(x, x[0], r_p + 1, 2.0)
+    with pytest.raises(ValueError, match="kernel_size is NaN"):
+        qk.quickshift_density(x, 2, float("nan"))
+    attrs = qk.kernel_attributes(3)
+    assert attrs["density"]["strip"] == qk.STRIP == attrs["parent"]["strip"]
