@@ -18,9 +18,10 @@ Phases, in order; any failure raises and exits non-zero:
 4. drive the config-4 slice of ``bench.py`` at 4096^2 x 8 bands on the card:
    ``segment`` (SLIC on bands 0/3/6, spectral + GLCM features of all 8
    bands) and a 300-tree forest ``predict_proba``, once cold and once warm,
-   with the kernel launch counts read around the warm run; then a profiled
-   run for the stage split, the kernel against its twin on one band of that
-   scene, and both timed with CUDA events;
+   with the kernel launch counts read around the warm run, and the cold and
+   warm runs' spectral columns identical where their label rasters are;
+   then a profiled run for the stage split, the kernel against its twin on
+   one band of that scene, and both timed with CUDA events;
 5. cross-check: the same slice at 512^2 on the card and on the CPU (the
    plain path the CPU tests hold against the JAX reference): object counts
    within 1%, each feature column's mean within 1e-3 of the column's mean
@@ -44,24 +45,36 @@ Phases, in order; any failure raises and exits non-zero:
 8. cross-check: the config-2 slice at 256^2 on the card and on the CPU:
    object counts within 1%, label partitions agreeing on >= 99.5% of the
    pixels, column means as in phase 5;
-9. hold the seam-spanner histogram kernel against its twin on an edge-case
+9. hold the seam-spanner histogram kernel (``glcm_spanner_hist``: every
+   shard's pieces of every spanner in one launch, the tables summed over
+   the shards and their sum (C + C^T)^2) against its twin on an edge-case
    scene sharded 2 x 4 on the card (spanners across the row seam, a column
-   seam and a corner, a constant-band spanner, a 1-pixel piece of a
-   spanner on one shard) at 16 and 256 levels: every count equal;
+   seam and a corner of four shards, a constant-band spanner, a 1-pixel
+   piece of a spanner on one shard) at 16 (one block), 180 (two), 255 (an
+   odd row split over two) and 256 levels, and on a dense scene whose big
+   spanner has more nonzero cells than a block lists (the whole-row scan)
+   at 100, 180, 255 and 256 levels: every table entry and every sum equal,
+   the sums
+   of a launch that stores no table (as the main path launches it) equal
+   too, two runs identical;
 10. drive config 5 of ``bench.py`` at its real size (``OBIA_BENCH5_REAL=1``:
    4096^2 RGB, n_segments=3000, compactness=10) through ``mosaic_pipeline``
    on a 2 x 4 mesh of shards on the one card, once cold and once warm, with
    the launch counts read around the warm run (``glcm_sums`` >= 24,
-   ``glcm_hist`` >= 1 per shard with spanners per band); a profiled run for
-   the stage split; the histogram kernel against its twin on one band of
-   that scene, both timed with CUDA events, and the GLCM sums kernel on
-   one band of that scene (one launch per shard) against its twin, timed
-   the same way;
+   ``glcm_hist`` == 3, one a band) and the cold and warm runs' spectral
+   columns identical where their label rasters are; a profiled run for the
+   stage split; the histogram kernel against its twin on one band of that
+   scene at 256, 16 and 255 levels, timed with CUDA events behind a queued
+   sleep (the card's time, not the host's) as the main path launches it,
+   with its tables stored, at 16 and 255 levels, and with every box
+   emptied (no walk), and the twin; the GLCM sums kernel on one band of
+   that scene (one launch per shard) against its twin, timed with CUDA
+   events;
 11. sharded against single-device on the card, on the same normalised
    image: SLIC labels (convert2lab=False) as partitions agreeing on
    >= 99.5% of the pixels, and every feature column of the mosaic against
    single-device ``create_objects`` on the mosaic's labels (rtol 2e-4,
-   atol 1e-5; skewness and kurtosis atol 2e-3);
+   atol 1e-5);
 12. cross-check: config 5 at 768^2 (``bench.py``'s default size for it) on
    the card and on the CPU, as in phase 8.
 
@@ -77,7 +90,10 @@ offsets only those of the max_dist disk) at 3C + 4 float32 operations, and
 the density's exponentials apart, over the SFU's 16 a clock per SM (4.18 T/s
 at 1.98 GHz); their ``bound_term`` names the larger term ("fp32", "sfu" or
 "bytes"; ``bound_by`` says "operations" for either of the first two).
-``glcm_sums`` also reports
+``glcm_hist``'s bound charges the labels and band of each piece's box and
+its 2-pixel halo (8 bytes a pixel), the work list, and the sums written
+once, as the main path launches it (no tables); ``bound_ms_tables`` adds
+the summed tables written once. ``glcm_sums`` also reports
 ``bound_ms_layout``: the same with the band charged the 32-byte sectors that
 hold it in the interleaved (H, W, C) image, the least a kernel that reads
 the band in place can take. No one
@@ -304,10 +320,26 @@ def seam_scene():
     return img, lab, int(lab.max()) + 1
 
 
+def dense_scene():
+    """A 128 x 192 scene of random levels for the 2 x 4 mesh: one object over
+    nearly all of it (every shard) and two small spanners. At an angle the
+    big one's table has more nonzero cells than a block of the kernel lists
+    (8,895 at L = 100; ~7,900 a half at L = 180, ~9,900 at 255 and 256)."""
+    rng = np.random.default_rng(3)
+    lab = np.zeros((128, 192), np.int32)
+    lab[:8, :8] = 1
+    lab[60:70, 40:50] = 2
+    lab[100:110, 140:190] = 3
+    img = rng.integers(0, 256, (128, 192, 2)).astype(np.float32)
+    return img, lab, 4
+
+
 def shard_calls(mesh, image_sh, labels_sh, K, levels, band):
-    """The glcm_sums arguments of every shard and the (shard, glcm_hist
-    arguments) of every shard with seam spanners, as ``sharded_glcm_sums``
-    builds them for one band."""
+    """The glcm_sums arguments of every shard and the glcm_spanner_hist
+    arguments of the band, as ``sharded_glcm_sums`` builds them for one band
+    on a mesh on one device."""
+    import torch
+
     from obia_tpu_torch.ops import glcm
     from obia_tpu_torch.parallel import glcm_sharded as gs
     mins, multi, present = gs.glcm_prepass(mesh, image_sh, labels_sh, K,
@@ -319,11 +351,9 @@ def shard_calls(mesh, image_sh, labels_sh, K, levels, band):
     offsets = glcm.angle_offsets(2, glcm.DEFAULT_ANGLES)
     sums = [(lab_h, img_h, band, loc, mn, inv, levels, offsets)
             for lab_h, img_h, loc, _, _ in shards.values()]
-    hist = [(key, (lab_h, img_h, band, objs, boxes, mn, inv, levels,
-                   offsets))
-            for key, (lab_h, img_h, _, objs, boxes) in shards.items()
-            if objs.numel()]
-    return sums, hist
+    (labs, imgs, work), = gs.spanner_groups(
+        mesh, shards, torch.nonzero(multi).reshape(-1))
+    return sums, (labs, imgs, band, work, mn, inv, levels, offsets)
 
 
 def band_bytes(image, layout: bool = False) -> int:
@@ -347,15 +377,25 @@ def sums_bound_ms(calls, layout: bool = False) -> float:
     return total / HBM_BYTES_PER_MS
 
 
-def hist_bound_ms(calls) -> float:
-    """Least time of glcm_hist over ``calls``: labels, the band and the
-    slots read once, the (M, L, A*L) int32 tables written once."""
-    total = 0
-    for _, (labels, image, _, objs, _, _, _, levels, offsets) in calls:
-        M = objs.numel()
-        total += (4 * labels.numel() + band_bytes(image) + 20 * M
-                  + 4 * M * levels * len(offsets) * levels)
-    return total / HBM_BYTES_PER_MS
+def hist_bound_ms(args, halo: int = 2, tables: bool = False) -> float:
+    """Least time of one glcm_spanner_hist call as the main path makes it:
+    the labels and the band of each piece's box and its ``halo``-pixel
+    border, clipped to the block, read once (8 bytes a pixel), the work list
+    and the spanners' quantisers read once, and the (A, M) int64 sums
+    (C + C^T)^2 written once, at 3.35 TB/s; with ``tables`` also the
+    (M, L, A*L) int32 summed tables written once, as a caller that asks for
+    them makes it."""
+    labs, _, _, work, _, _, levels, offsets = args
+    H, W = labs[0].shape
+    b = work.pieces[:, 1:].long().cpu()
+    rows = ((b[:, 1] + halo).clamp(max=H - 1)
+            - (b[:, 0] - halo).clamp(min=0) + 1).clamp(min=0)
+    cols = ((b[:, 3] + halo).clamp(max=W - 1)
+            - (b[:, 2] - halo).clamp(min=0) + 1).clamp(min=0)
+    M, P, A = work.ids.numel(), work.pieces.shape[0], len(offsets)
+    read = 8 * int((rows * cols).sum()) + 4 * (2 * M + 1) + 20 * P + 8 * M
+    written = 8 * A * M + (4 * M * levels * A * levels if tables else 0)
+    return (read + written) / HBM_BYTES_PER_MS
 
 
 def qs_bound(x, radius: int, max_dist=None) -> dict:
@@ -386,28 +426,124 @@ def qs_bound(x, radius: int, max_dist=None) -> dict:
             "bound_term": term, "pairs": pairs}
 
 
-def compare_hist(calls, what: str) -> int:
-    """glcm_hist against its twin on every call; returns the max abs
-    difference of the counts (0 or it raises)."""
+def compare_hist(args, what: str) -> int:
+    """glcm_spanner_hist against its twin on one call, with its tables and
+    without them (as the main path calls it), and two kernel runs against
+    each other; returns the max abs difference of the tables and the sums
+    (C + C^T)^2 (0 or it raises)."""
     import torch
 
     from obia_tpu_torch.ops import glcm_kernel
     before = glcm_kernel.hist_launches
-    err, slots, pairs = 0, 0, 0
-    for key, args in calls:
-        got = glcm_kernel.glcm_hist(*args)
-        want = glcm_kernel.glcm_hist_reference(*args)
-        torch.cuda.synchronize()
-        err = max(err, int((got.long() - want.long()).abs().max()))
-        slots += got.shape[0]
-        pairs += int(want.sum())
+    got, got_sq = glcm_kernel.glcm_spanner_hist(*args)
+    again, again_sq = glcm_kernel.glcm_spanner_hist(*args)
+    none, main_sq = glcm_kernel.glcm_spanner_hist(*args, tables=False)
+    want, want_sq = glcm_kernel.glcm_spanner_hist_reference(*args)
+    torch.cuda.synchronize()
+    calls = glcm_kernel.hist_launches - before
     glcm_kernel.hist_launches = before  # comparison launches do not count
-    log(f"  {what}: {len(calls)} shards with spanners, {slots} spanner "
-        f"tables, {pairs} pairs; max|diff| {err}")
-    if err != 0 or not calls:
+    work = args[3]
+    M = work.ids.numel()
+    err = (max(int((got.long() - want.long()).abs().max()),
+               int((got_sq - want_sq).abs().max()),
+               int((main_sq - want_sq).abs().max())) if M else 0)
+    same = torch.equal(got, again) and torch.equal(got_sq, again_sq)
+    log(f"  {what}: {M} spanners, {work.pieces.shape[0]} pieces on "
+        f"{len(args[0])} shards, {int(want.sum())} pairs; tables and sums "
+        f"(C+C^T)^2 max|diff| {err} (sums without tables included); two "
+        f"runs identical: {same}")
+    if err != 0 or M == 0 or none is not None:
         raise AssertionError(f"GLCM histogram kernel disagrees with its twin"
                              f" or saw no spanner ({what})")
+    if not same or calls != 3:
+        raise AssertionError(f"GLCM histogram kernel runs differ or "
+                             f"miscount ({what})")
     return err
+
+
+def hist_times(mesh_labels, image_sh, K, args) -> dict:
+    """CUDA-event times of glcm_spanner_hist on one band of config 5, as the
+    main path calls it (no tables) at L = 256, and beside it: with the
+    tables stored, at L = 16 and 255, with every box emptied (launch,
+    table zeroing and the epilogue, no walk), and the twin. Every kernel
+    result is held to the twin first. Returns the glcm_hist JSON entry's
+    numbers; the launches here are not counted."""
+    import torch
+
+    from obia_tpu_torch.ops import glcm_kernel
+    before = glcm_kernel.hist_launches
+    work = args[3]
+    empty = work.pieces.clone()
+    empty[:, 1], empty[:, 2] = 1, 0  # rmin > rmax: a box with no pixel
+    no_walk = (*args[:3], glcm_kernel.SpannerPieces(work.ids, work.ptr,
+                                                    empty), *args[4:])
+    _, got = glcm_kernel.glcm_spanner_hist(*no_walk, tables=False)
+    if int(got.abs().sum()) != 0:
+        raise AssertionError("empty boxes gave a nonzero sum")
+    by_level = {}
+    for levels in (16, 255):
+        a = shard_calls(mesh_labels.mesh, image_sh, mesh_labels, K, levels,
+                        0)[1]
+        compare_hist(a, f"config 5 band 0, L={levels}")
+        by_level[levels] = time_ms(
+            lambda: glcm_kernel.glcm_spanner_hist(*a, tables=False), 10,
+            queued=True)
+    out = {
+        "ms": time_ms(lambda: glcm_kernel.glcm_spanner_hist(
+            *args, tables=False), 10, queued=True),
+        "plain_ms": time_ms(
+            lambda: glcm_kernel.glcm_spanner_hist_reference(*args), 3),
+        "bound_ms": hist_bound_ms(args),
+        "ms_unqueued": time_ms(lambda: glcm_kernel.glcm_spanner_hist(
+            *args, tables=False), 10),
+        "ms_tables": time_ms(lambda: glcm_kernel.glcm_spanner_hist(*args),
+                             10, queued=True),
+        "bound_ms_tables": hist_bound_ms(args, tables=True),
+        "ms_l16": by_level[16], "ms_l255": by_level[255],
+        "ms_no_walk": time_ms(lambda: glcm_kernel.glcm_spanner_hist(
+            *no_walk, tables=False), 10, queued=True)}
+    glcm_kernel.hist_launches = before
+    b = work.pieces[:, 1:].long().cpu()
+    px = ((b[:, 1] - b[:, 0] + 1).clamp(min=0)
+          * (b[:, 3] - b[:, 2] + 1).clamp(min=0))
+    per = torch.zeros(work.ids.numel(), dtype=torch.int64).index_add_(
+        0, torch.repeat_interleave(torch.arange(work.ids.numel()),
+                                   (work.ptr[1:] - work.ptr[:-1]).long().cpu()),
+        px)
+    log(f"  the walk: {int(px.sum())} box pixels an angle, the largest "
+        f"spanner's {int(per.max())}, the largest piece's {int(px.max())}, "
+        f"median spanner {int(per.median())}")
+    log(f"GLCM spanner histogram, one band of config 5 (one launch, "
+        f"{work.ids.numel()} spanners, {work.pieces.shape[0]} pieces), as "
+        f"the main path calls it (L=256, no tables), card time with the "
+        f"launches queued: kernel {out['ms']:.4f} ms (unqueued "
+        f"{out['ms_unqueued']:.4f}), plain torch {out['plain_ms']:.3f} ms, "
+        f"bound {out['bound_ms']:.4f} ms; tables stored "
+        f"{out['ms_tables']:.4f} ms "
+        f"(bound {out['bound_ms_tables']:.4f}); L=16 {out['ms_l16']:.4f} "
+        f"ms, L=255 {out['ms_l255']:.4f} ms; every box empty "
+        f"{out['ms_no_walk']:.4f} ms ({card_line()})")
+    return out
+
+
+SPECTRAL = ("mean", "variance", "min", "max", "skewness", "kurtosis")
+
+
+def check_spectral_runs(cold, warm, same_labels: bool, what: str) -> None:
+    """The cold and warm runs' spectral columns bitwise equal (NaN slots
+    included) when their label rasters are: the moment sums are float64,
+    rounded once, so the card's atomics cannot move them."""
+    if not same_labels:
+        log(f"  {what}: label rasters differ; spectral columns not compared")
+        return
+    cols = [c for c in warm.columns if c.split("_", 1)[-1] in SPECTRAL]
+    differ = [c for c in cols
+              if not np.array_equal(cold[c], warm[c], equal_nan=True)]
+    log(f"  {what}: {len(cols)} spectral columns of the cold and warm runs "
+        f"identical: {not differ}")
+    if differ or not cols:
+        raise AssertionError(f"spectral columns differ between the cold and "
+                             f"warm runs ({what}): {differ[:4]}")
 
 
 def glcm_inputs(image_t, labels, K, band, levels=256, offsets=None):
@@ -549,12 +685,18 @@ def edge_case_scene():
     return img, lab, int(lab.max()) + 1
 
 
-def time_ms(fn, n: int) -> float:
+def time_ms(fn, n: int, queued: bool = False) -> float:
+    """Mean ms of ``fn`` over n calls between two CUDA events. With
+    ``queued`` the stream first waits on a ~20 ms sleep kernel, so the n
+    calls are all enqueued before the start event runs and the time is the
+    card's alone, not the host's launch rate."""
     import torch
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if queued:
+        torch.cuda._sleep(40_000_000)
     start.record()
     for _ in range(n):
         fn()
@@ -742,11 +884,7 @@ def sharded_vs_single(r5, image, device: str = "cuda") -> None:
             raise AssertionError(f"column {c}: NaN slots differ")
         if np.isnan(b).all():
             continue  # the point-cloud slots: NaN by design
-        # skewness and kurtosis are ratios of cancelling float32 sums whose
-        # atomics add in no fixed order: two single-device runs on the card
-        # differ by up to 1.1e-4, and sharding adds another order
-        atol = 2e-3 if c.endswith(("skewness", "kurtosis")) else 1e-5
-        excess = np.nanmax(np.abs(a - b) / (atol + 2e-4 * np.abs(b)))
+        excess = np.nanmax(np.abs(a - b) / (1e-5 + 2e-4 * np.abs(b)))
         if excess > worst[1]:
             worst = (c, float(excess))
         if not excess <= 1.0:
@@ -846,6 +984,7 @@ def main() -> None:
     same_runs = (np.array_equal(rle_cold.values, rle_warm.values)
                  and np.array_equal(rle_cold.lengths, rle_warm.lengths))
     log(f"cold and warm label rasters identical: {same_runs}")
+    check_spectral_runs(s_cold.table, s.table, same_runs, "config 4")
     log(f"slice {SIZE}^2 x {BANDS} bands: {n_obj} objects, cold {cold:.3f} s,"
         f" warm {warm:.3f} s, {mp / warm:.3f} MP/s warm; GLCM launches "
         f"{launches}")
@@ -967,12 +1106,18 @@ def main() -> None:
     cmesh = pmesh.make_mesh(C5_SHARDS, ["cuda"])
     himg, hlab, hK = seam_scene()
     hist_err = 0
-    for levels in (16, 256):
+    for levels in (16, 180, 255, 256):
         for band in range(himg.shape[2]):
             hist_err = max(hist_err, compare_hist(shard_calls(
                 cmesh, pmesh.shard_raster(cmesh, himg)[0],
                 pmesh.shard_raster(cmesh, hlab, fill=-1)[0], hK, levels,
                 band)[1], f"edge-case sharded scene, L={levels}, band {band}"))
+    dimg, dlab, dK = dense_scene()
+    for levels in (100, 180, 255, 256):
+        hist_err = max(hist_err, compare_hist(shard_calls(
+            cmesh, pmesh.shard_raster(cmesh, dimg)[0],
+            pmesh.shard_raster(cmesh, dlab, fill=-1)[0], dK, levels, 0)[1],
+            f"dense scene (cell lists overflow), L={levels}"))
 
     # -- 10. config 5 at its real size on a 2 x 4 mesh on the card ---------
     from obia_tpu_torch.parallel.sharded import count_shard_spanning
@@ -987,17 +1132,19 @@ def main() -> None:
     lab5 = r5.layer.shards
     n_span, _ = count_shard_spanning(lab5.mesh, lab5, n5)
     img5_sh = pmesh.shard_raster(lab5.mesh, image5.device_tensor("cuda"))[0]
-    sums5_calls, calls5 = shard_calls(lab5.mesh, img5_sh, lab5, n5, 256, 0)
+    sums5_calls, hist5_args = shard_calls(lab5.mesh, img5_sh, lab5, n5, 256,
+                                          0)
     same5 = np.array_equal(r5_cold.label_raster, r5.label_raster)
     log(f"cold and warm label rasters identical: {same5}")
+    check_spectral_runs(r5_cold.table, r5.table, same5, "config 5")
     log(f"config 5 {C5_SIZE}^2 RGB on a {lab5.mesh.ty} x {lab5.mesh.tx} "
-        f"mesh: {n5} objects, {n_span} seam spanners on "
-        f"{len(calls5)} shards, cold {cold5:.3f} s, warm {warm5:.3f} s, "
-        f"{mp5 / warm5:.3f} MP/s warm; launches glcm_sums {sums5}, "
-        f"glcm_hist {hist5}")
-    if sums5 < C5_SHARDS * 3 or hist5 < len(calls5) * 3 or n_span < 1:
+        f"mesh: {n5} objects, {n_span} seam spanners in "
+        f"{hist5_args[3].pieces.shape[0]} pieces, cold {cold5:.3f} s, warm "
+        f"{warm5:.3f} s, {mp5 / warm5:.3f} MP/s warm; launches glcm_sums "
+        f"{sums5}, glcm_hist {hist5}")
+    if sums5 < C5_SHARDS * 3 or hist5 != 3 or n_span < 1:
         raise AssertionError(f"config-5 run missed a kernel: glcm_sums "
-                             f"{sums5}, glcm_hist {hist5}")
+                             f"{sums5}, glcm_hist {hist5} (one a band)")
     for c in r5.table.columns:
         if c.startswith("b") and np.isnan(r5.table[c]).all():
             raise AssertionError(f"column {c} is all NaN")
@@ -1005,18 +1152,13 @@ def main() -> None:
         raise AssertionError("NaN means or missing geometry in config 5")
     profiled(run_config5, image5, "config 5 profiled warm run")
     hist_err = max(hist_err, compare_hist(
-        calls5, f"config 5 {C5_SIZE}^2 band 0"))
+        hist5_args, f"config 5 {C5_SIZE}^2 band 0"))
     before = glcm_kernel.hist_launches
-    h_ms = time_ms(lambda: [glcm_kernel.glcm_hist(*a) for _, a in calls5],
-                   10)
-    h_plain = time_ms(lambda: [glcm_kernel.glcm_hist_reference(*a)
-                               for _, a in calls5], 3)
+    h = hist_times(lab5, img5_sh, n5, hist5_args)
+    kernel_split(lambda: glcm_kernel.glcm_spanner_hist(*hist5_args,
+                                                       tables=False),
+                 "GLCM spanner histogram kernel")
     glcm_kernel.hist_launches = before
-    h_bound = hist_bound_ms(calls5)
-    log(f"GLCM histogram, one band of config 5 ({len(calls5)} launches, "
-        f"{sum(a[3].numel() for _, a in calls5)} spanner tables): kernel "
-        f"{h_ms:.3f} ms, plain torch {h_plain:.3f} ms, bound {h_bound:.4f} "
-        f"ms ({card})")
     for i, a in enumerate(sums5_calls):
         err = max(err, compare_kernel(a, f"config 5 shard {i} band 0"))
     before = glcm_kernel.launches
@@ -1037,7 +1179,7 @@ def main() -> None:
 
     # -- 11. sharded vs single-device on the card --------------------------
     sharded_vs_single(r5, image5)
-    del r5, r5_cold, calls5, sums5_calls, img5_sh
+    del r5, r5_cold, hist5_args, sums5_calls, img5_sh
 
     # -- 12. config-5 cross-check against the CPU plain path --------------
     cross_check(run_config5, build_scene(h=C5_CROSS_SIZE, w=C5_CROSS_SIZE),
@@ -1080,10 +1222,10 @@ def main() -> None:
          "ms_c8": qs_c8[4], "plain_ms_c8": qs_c8[5]},
         {"name": "glcm_hist", "route": "cuda",
          "source": "obia_tpu_torch/csrc/glcm.cu",
+         "function": "glcm_spanner_hist_kernel",
          "replaces": "obia_tpu/ops/glcm_pallas.py:258",
-         "launches": hist5, "max_abs_err": float(hist_err), "ms": h_ms,
-         "plain_ms": h_plain, "bound_ms": h_bound, "bound_by": "bytes",
-         "library_ms": None}]}))
+         "launches": hist5, "max_abs_err": float(hist_err),
+         "bound_by": "bytes", "library_ms": None, **h}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -41,18 +41,50 @@
 // mostly from L2. The large kernel's 131,584-byte table (L = 256) allows
 // one block per SM, and its shared atomics carry the pair work.
 //
-// glcm_hist_kernel replaces obia_tpu/ops/glcm_pallas.py::_hist_kernel
-// (launched by _glcm_hist_call): for the few objects that span a shard seam,
-// the full directed co-occurrence table, which the sharded GLCM sums over the
-// shards before it squares it. On the TPU a segment's jobs accumulate the
-// (256, A*256) table in VMEM and the last job DMAs it to the segment's slot.
-// Here one block per (slot, angle) walks the slot's box of centre pixels and
-// adds one per pair with atomicAdd to a zeroed (M, L, A*L) int32 table in
-// global memory: a 256 x 256 int32 table is 256 KB, more than the 227 KB a
-// block can use, so shared memory cannot hold it. The output starts at zero,
-// so no slot holds undefined bytes. What bounds it: global atomics, one per
-// pair, spread over a 256 KB slab per block; at a few hundred seam spanners
-// of a 4096^2 scene the pairs number a few million per band.
+// glcm_spanner_hist_kernel replaces obia_tpu/ops/glcm_pallas.py::_hist_kernel
+// (launched by _glcm_hist_call) and the psum and square that
+// obia_tpu/parallel/glcm_sharded.py runs after it. An object that spans a
+// shard seam needs its directed co-occurrence table summed over the shards,
+// and the exact sum (C + C^T)^2 of that sum, which is not a sum of per-shard
+// values. On the TPU each shard accumulates a (256, A*256) table a spanner in
+// VMEM, and XLA sums the tables over the mesh and squares them. Here every
+// shard lies on the one card, so one launch a band does all of it.
+// Persistent thread-block clusters, as many as fit the card at once, take
+// the (spanner, angle) items in a fixed order. For each, the cluster walks
+// the spanner's pieces on every shard (a CSR list: the shard and the box of
+// centre pixels, in that shard's halo coordinates) and counts the pairs into
+// a table in shared memory. A table that fits SPAN_TABLE_BYTES (L <= 155)
+// takes a cluster of one 512-thread block, two an SM, so one block's walk
+// hides the other's barriers. At L = 256 the table is 256 KB, more than the
+// 227 KB a block may use, so a cluster of two 1024-thread blocks splits it
+// by centre level: block r holds rows [r * rows, r * rows + rows). Each
+// block walks the boxes whole and counts only the pairs whose centre level
+// is one of its rows, so every atomic lands in its own shared memory (an
+// atomic through distributed shared memory costs more than the second read
+// of a pixel, which the other block has brought into L2). Each thread loads
+// four pixels' labels and values, held in registers, before it tests any,
+// so the walk waits one memory latency per four pixels.
+// A spanner's few thousand pairs at an angle touch a few thousand of the
+// table's L^2 cells, so the atomic that turns a cell nonzero also lists it
+// (up to SPAN_CELLS a block). After a cluster barrier each block sums in
+// int64 (C_ij + C_ji)^2 = 2 C_ij^2 + 2 C_ij C_ji over its listed cells,
+// reading C_ji from the block that owns row j, and zeroes those cells for
+// the next item: the table is cleared once a launch, not once an item. Two
+// cluster barriers an item suffice, as no block writes another's memory
+// but block 0's parts.
+// Where a list overflowed, or the caller asks for the tables (shards on
+// several devices, whose tables are summed afterwards), the blocks scan
+// their rows whole instead, storing every entry (coalesced; the output
+// needs no memset), the products between two blocks' rows split between
+// the two, each reading the other's rows whole (a column read across the
+// cluster would cost a transfer an entry). Rows lie L | 1 words apart
+// (odd), so column reads of C^T fall on distinct banks. The blocks' parts
+// meet in block 0, which writes the total. Integer sums and a fixed item
+// order make every output the same from run to run.
+// What bounds it: the walk's latency, a spanner's boxes read once for each
+// angle (8 bytes a pixel, mostly from L2), and two cluster barriers an
+// item.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -413,72 +445,371 @@ extern "C" int obia_glcm_sums(const void* labels, const void* band,
     return (int)cudaGetLastError();
 }
 
-#define HIST_THREADS 256
+#define SPAN_THREADS 1024      // threads of a block of a two-block cluster
+#define SPAN_TABLE_BYTES 96256  // the largest table one block holds: two
+                                // 512-thread blocks, with their cell lists,
+                                // fit an SM
+#define SPAN_CELLS 4096         // nonzero cells a block lists
+#define SPAN_SMEM_BYTES ((128 * 257 + SPAN_CELLS) * 4)  // half of L = 256
 
-__global__ void __launch_bounds__(HIST_THREADS)
-glcm_hist_kernel(const int32_t* __restrict__ labels,
-                 const float* __restrict__ band, long long H, long long W,
-                 long long pix_stride, const int32_t* __restrict__ objs,
-                 const int32_t* __restrict__ bbox,
-                 const float* __restrict__ mn_k,
-                 const float* __restrict__ inv_k, long long n_objects,
-                 int levels, GlcmOffsets offs, int n_angles,
-                 int* __restrict__ out) {
-    const long long m = blockIdx.x;
-    const int a = blockIdx.y;
-    // the box, clipped to the raster so no centre read leaves it
-    const int r0 = max(bbox[4 * m], 0);
-    const int r1 = min(bbox[4 * m + 1], (int)H - 1);
-    const int c0 = max(bbox[4 * m + 2], 0);
-    const int c1 = min(bbox[4 * m + 3], (int)W - 1);
-    const int32_t lab = objs[m];
-    // no centre pixel on this block, or no such object
-    if (r0 > r1 || c0 > c1 || lab < 0 || lab >= n_objects) return;
-    const int L = levels;
-    const long long row = (long long)n_angles * L;
-    int* slab = out + m * L * row + (long long)a * L;  // [q1 * row + q2]
-    const int dr = offs.dr[a], dc = offs.dc[a];
-    const float mn = mn_k[lab], inv = inv_k[lab];
-    const long long nc = (long long)(c1 - c0 + 1);
-    const long long npx = (long long)(r1 - r0 + 1) * nc;
-    for (long long t = threadIdx.x; t < npx; t += HIST_THREADS) {
-        const long long r = r0 + t / nc, c = c0 + t % nc;
-        const long long rn = r + dr, cn = c + dc;
-        if (rn < 0 || rn >= H || cn < 0 || cn >= W) continue;
-        const long long p = r * W + c, pn = rn * W + cn;
-        if (labels[p] != lab || labels[pn] != lab) continue;
-        const int q1 = glcm_quantise(band[p * pix_stride], mn, inv, L);
-        const int q2 = glcm_quantise(band[pn * pix_stride], mn, inv, L);
-        atomicAdd(&slab[(long long)q1 * row + q2], 1);
+namespace cg = cooperative_groups;
+
+// One pixel of a spanner's walk: its label and value and its neighbour's.
+struct SpanPix {
+    int l, ln;
+    float v, vn;
+};
+
+// Loads pixel t of a box of npx centre pixels nc wide from (r0, c0). The
+// loads do not wait on a test: a pixel past the box, or whose neighbour
+// lies off the block, reads pixel 0 and takes label -1, so the walk holds
+// its pixels in registers and starts all their loads before any compare.
+__device__ __forceinline__ SpanPix span_load(
+    const int32_t* __restrict__ lab, const float* __restrict__ img, int C,
+    int H, int W, int t, int npx, int nc, int r0, int c0, int dr, int dc) {
+    const int r = r0 + t / nc, c = c0 + t % nc;
+    const int rn = r + dr, cn = c + dc;
+    const bool ok = t < npx && rn >= 0 && rn < H && cn >= 0 && cn < W;
+    const long long pix = ok ? (long long)r * W + c : 0;
+    const long long pn = ok ? (long long)rn * W + cn : 0;
+    const int l = lab[pix], ln = lab[pn];
+    SpanPix p;
+    p.l = ok ? l : -1;
+    p.ln = ok ? ln : -1;
+    p.v = img[pix * C];
+    p.vn = img[pn * C];
+    return p;
+}
+
+// Adds the pair of p to this block's table if both its pixels are object
+// k's and its centre level is one of the block's rows [row0, row0 + rows).
+// The atomic that turns a cell nonzero lists it in cells, and n counts the
+// cells that turned nonzero (it may pass SPAN_CELLS).
+__device__ __forceinline__ void span_count(const SpanPix& p, int k, float mn,
+                                           float inv, int L, int row0,
+                                           int rows, int Lp, int* table,
+                                           int* cells, int* n) {
+    if (p.l != k || p.ln != k) return;
+    const int il = glcm_quantise(p.v, mn, inv, L) - row0;
+    if (il < 0 || il >= rows) return;
+    const int cell = il * Lp + glcm_quantise(p.vn, mn, inv, L);
+    if (atomicAdd(table + cell, 1) == 0) {
+        const int i = atomicAdd(n, 1);
+        if (i < SPAN_CELLS) cells[i] = cell;
     }
 }
 
-// Launches glcm_hist_kernel on `stream` and returns cudaGetLastError().
-// labels, band, pix_stride, mn, inv (n_objects,), levels, offsets: as
-// obia_glcm_sums. objs: (M,) int32 object ids; bbox: (M, 4) int32 boxes of
-// the centre pixels to visit per slot. out: (M, levels, n_angles * levels)
-// int32, zeroed by the caller; entry [m, i, a * levels + j] counts the pairs
-// at offset a of object objs[m] with centre level i and neighbour level j;
-// a slot whose id is outside 0..n_objects-1 stays zero.
-extern "C" int obia_glcm_hist(const void* labels, const void* band,
-                              long long H, long long W, long long pix_stride,
-                              const void* objs, const void* bbox,
-                              const void* mn, const void* inv, long long M,
-                              long long n_objects, int levels,
-                              const int* offsets, int n_angles, void* out,
-                              void* stream) {
+__global__ void __launch_bounds__(SPAN_THREADS, 1)
+glcm_spanner_hist_kernel(const long long* __restrict__ lab_base,
+                         const long long* __restrict__ img_base, int n_shards,
+                         int H, int W, int C, int band,
+                         const int32_t* __restrict__ ids,
+                         const int32_t* __restrict__ piece_ptr,
+                         const int32_t* __restrict__ pieces,
+                         const float* __restrict__ mn_k,
+                         const float* __restrict__ inv_k, long long K,
+                         int levels, int rows, GlcmOffsets offs, long long M,
+                         int A, int* __restrict__ tables,
+                         long long* __restrict__ sumsq) {
+    extern __shared__ int span_smem[];
+    __shared__ int span_n;
+    __shared__ long long red[SPAN_THREADS / 32];
+    __shared__ long long part[2];
+    cg::cluster_group cluster = cg::this_cluster();
+    const int rank = (int)cluster.block_rank();
+    const int ncta = (int)cluster.dim_blocks().x;  // 1 or 2
+    const int L = levels, Lp = levels | 1;
+    const int row0 = rank * rows;
+    const int nrows = min(rows, L - row0);
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int n_warps = blockDim.x >> 5;
+    int* const table = span_smem;  // this block's rows
+    int* const cells = span_smem + rows * Lp;
+    for (int i = threadIdx.x; i < rows * Lp; i += blockDim.x) table[i] = 0;
+    if (threadIdx.x == 0) span_n = 0;
+    cluster.sync();  // every block's rows are zero before a pair lands
+
+    // a persistent cluster takes the (spanner, angle) items cid, cid + G,
+    // ...: the same items whatever the timing, and integer sums, so every
+    // output is the same from run to run
+    const long long n_items = M * A;
+    const int G = gridDim.x / ncta;
+    // the item's spanner id and piece range, loaded an item ahead so the
+    // walk does not wait for them
+    long long item = blockIdx.x / ncta;
+    int32_t k_next = 0, p_next = 0, end_next = 0;
+    if (item < n_items) {
+        k_next = ids[item / A];
+        p_next = piece_ptr[item / A];
+        end_next = piece_ptr[item / A + 1];
+    }
+    for (; item < n_items; item += G) {
+        const long long m = item / A;
+        const int a = (int)(item % A);
+        const int32_t k = k_next;
+        const int p_begin = p_next, p_end = end_next;
+        if (item + G < n_items) {
+            const long long m2 = (item + G) / A;
+            k_next = ids[m2];
+            p_next = piece_ptr[m2];
+            end_next = piece_ptr[m2 + 1];
+        }
+        if (k >= 0 && k < K) {
+            const float mn = mn_k[k], inv = inv_k[k];
+            // offs indexed by constants only: a parameter read at a run-time
+            // index is copied to the stack first
+            int dr = 0, dc = 0;
+#pragma unroll
+            for (int i = 0; i < GLCM_MAX_ANGLES; ++i) {
+                dr = i == a ? offs.dr[i] : dr;
+                dc = i == a ? offs.dc[i] : dc;
+            }
+            for (int p = p_begin; p < p_end; ++p) {
+                const int32_t* pc = pieces + 5LL * p;
+                const int s = pc[0];
+                // the box, clipped to the block so no centre read leaves it
+                const int r0 = max(pc[1], 0), r1 = min(pc[2], H - 1);
+                const int c0 = max(pc[3], 0), c1 = min(pc[4], W - 1);
+                if (s < 0 || s >= n_shards || r0 > r1 || c0 > c1) continue;
+                const int32_t* lab = (const int32_t*)lab_base[s];
+                const float* img = (const float*)img_base[s] + band;
+                const int nc = c1 - c0 + 1;
+                const int npx = (r1 - r0 + 1) * nc;
+                // the whole box, in every block; four pixels a thread, every
+                // load out before a compare
+                const int step = blockDim.x;
+                for (int t = threadIdx.x; t < npx; t += 4 * step) {
+                    const SpanPix p0 = span_load(lab, img, C, H, W, t, npx,
+                                                 nc, r0, c0, dr, dc);
+                    const SpanPix p1 = span_load(lab, img, C, H, W, t + step,
+                                                 npx, nc, r0, c0, dr, dc);
+                    const SpanPix p2 = span_load(lab, img, C, H, W,
+                                                 t + 2 * step, npx, nc, r0,
+                                                 c0, dr, dc);
+                    const SpanPix p3 = span_load(lab, img, C, H, W,
+                                                 t + 3 * step, npx, nc, r0,
+                                                 c0, dr, dc);
+                    span_count(p0, k, mn, inv, L, row0, nrows, Lp, table,
+                               cells, &span_n);
+                    span_count(p1, k, mn, inv, L, row0, nrows, Lp, table,
+                               cells, &span_n);
+                    span_count(p2, k, mn, inv, L, row0, nrows, Lp, table,
+                               cells, &span_n);
+                    span_count(p3, k, mn, inv, L, row0, nrows, Lp, table,
+                               cells, &span_n);
+                }
+            }
+        }
+        cluster.sync();  // every pair is counted
+
+        // sum (C_ij + C_ji)^2 = 2 sum C_ij^2 + 2 sum C_ij C_ji. When every
+        // block listed all its nonzero cells and no table is asked for, each
+        // block sums its listed cells, reading C_ji from whichever block owns
+        // row j. Otherwise each block scans its rows whole (and stores them):
+        // the squares and the products within its rows as it goes; the
+        // products between two blocks' rows (twice the sum over i in the
+        // lower block, j in the higher) split between the two by j, each
+        // reading rows of the other whole (coalesced) and the matching
+        // column of its own (odd row pitch: no bank conflict).
+        const int n_own = span_n;
+        bool whole = tables != nullptr;
+        for (int b = 0; b < ncta; ++b)
+            whole = whole || *cluster.map_shared_rank(&span_n, b) > SPAN_CELLS;
+        long long acc = 0;
+        if (!whole) {
+            for (int e = threadIdx.x; e < n_own; e += blockDim.x) {
+                const int cell = cells[e];
+                const int il = cell / Lp, j = cell - il * Lp;
+                const int ow = j / rows;  // the block that owns row j
+                const int at = (j - ow * rows) * Lp + row0 + il;
+                const int cji = ow == rank
+                                    ? table[at]
+                                    : cluster.map_shared_rank(table, ow)[at];
+                const long long cij = table[cell];
+                acc += cij * cij + cij * cji;
+            }
+            acc *= 2;
+        } else {
+            for (int il = warp; il < nrows; il += n_warps) {
+                const int i = row0 + il;
+                const int* row = table + il * Lp;
+                int* out = tables == nullptr
+                               ? nullptr
+                               : tables + ((m * L + i) * A + a) * (long long)L;
+                long long sq = 0, tr = 0;
+                for (int j = lane; j < L; j += 32) {
+                    const int cij = row[j];
+                    if (out != nullptr) out[j] = cij;
+                    sq += (long long)cij * cij;
+                    const int jl = j - row0;
+                    if (jl >= 0 && jl < nrows)
+                        tr += (long long)cij * table[jl * Lp + i];
+                }
+                acc += 2 * sq + 2 * tr;
+            }
+            long long x = 0;
+            for (int b = 0; b < ncta; ++b) {
+                if (b == rank) continue;
+                const int* other = cluster.map_shared_rank(table, b);
+                const int b0 = b * rows;                  // its first row
+                const int nb = max(min(rows, L - b0), 0);  // and its count
+                if (rank < b) {
+                    // rows j = b0 + jl, jl < nb / 2, of the higher block b
+                    for (int jl = warp; jl < nb / 2; jl += n_warps) {
+                        const int* orow = other + jl * Lp;
+#pragma unroll 4
+                        for (int il = lane; il < nrows; il += 32)
+                            x += (long long)orow[row0 + il] *
+                                 table[il * Lp + b0 + jl];
+                    }
+                } else {
+                    // this block's rows jl >= nrows / 2 against the lower b
+                    for (int il = warp; il < nb; il += n_warps) {
+                        const int* orow = other + il * Lp;  // row b0 + il
+#pragma unroll 2
+                        for (int jl = nrows / 2 + lane; jl < nrows; jl += 32)
+                            x += (long long)orow[row0 + jl] *
+                                 table[jl * Lp + b0 + il];
+                    }
+                }
+            }
+            acc += 4 * x;
+        }
+        acc = warp_sum(acc);
+        if (lane == 0) red[warp] = acc;
+        __syncthreads();
+        if (warp == 0) {
+            long long v = lane < n_warps ? red[lane] : 0;
+            v = warp_sum(v);
+            if (lane == 0) cluster.map_shared_rank(&part[0], 0)[rank] = v;
+        }
+        // every block's part is in, and no block reads another's rows or
+        // count again for this item
+        cluster.sync();
+        if (rank == 0 && threadIdx.x == 0) {
+            long long total = 0;
+            for (int b = 0; b < ncta; ++b) total += part[b];
+            sumsq[(long long)a * M + m] = total;
+        }
+        // zero what this item counted, for the next
+        if (whole) {
+            for (int i = threadIdx.x; i < rows * Lp; i += blockDim.x)
+                table[i] = 0;
+        } else {
+            for (int e = threadIdx.x; e < n_own; e += blockDim.x)
+                table[cells[e]] = 0;
+        }
+        if (threadIdx.x == 0) span_n = 0;
+        // this block's table is zero before its next pairs; a block's
+        // atomics stay in its own table, and the other block reads this
+        // one's rows and count again only after the next item's first
+        // cluster barrier
+        __syncthreads();
+    }
+}
+
+// The kernel's grid on the current device: the clusters of `levels`' table
+// that can run at once, each launched as ncta blocks. The runtime is asked
+// once per (device, levels); the shared-memory limit is raised once per
+// device. Concurrent first calls ask twice and store the same value.
+static cudaError_t spanner_grid(int levels, int ncta, int threads,
+                                size_t smem, int* clusters) {
+    static std::atomic<int> cache[GLCM_MAX_DEVICES][257];
+    int device = 0;
+    cudaError_t err = cudaGetDevice(&device);
+    if (err != cudaSuccess) return err;
+    if (device < GLCM_MAX_DEVICES) {
+        *clusters = cache[device][levels].load(std::memory_order_relaxed);
+        if (*clusters > 0) return cudaSuccess;
+    }
+    err = cudaFuncSetAttribute(glcm_spanner_hist_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               SPAN_SMEM_BYTES);
+    if (err == cudaSuccess)
+        err = cudaFuncSetAttribute(
+            glcm_spanner_hist_kernel,
+            cudaFuncAttributePreferredSharedMemoryCarveout,
+            cudaSharedmemCarveoutMaxShared);
+    if (err != cudaSuccess) return err;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3((unsigned int)ncta, 1, 1);
+    cfg.blockDim = dim3((unsigned int)threads, 1, 1);
+    cfg.dynamicSmemBytes = smem;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = (unsigned int)ncta;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    int n = 0;
+    err = cudaOccupancyMaxActiveClusters(&n, glcm_spanner_hist_kernel, &cfg);
+    if (err != cudaSuccess) return err;
+    *clusters = n > 0 ? n : 1;
+    if (device < GLCM_MAX_DEVICES)
+        cache[device][levels].store(*clusters, std::memory_order_relaxed);
+    return cudaSuccess;
+}
+
+// Launches glcm_spanner_hist_kernel on `stream` and returns the launch's
+// error or cudaGetLastError(). lab_base, img_base: DEVICE arrays of
+// n_shards addresses of the shards' (H, W) int32 label blocks and (H, W, C)
+// float32 image blocks, all of one shape; band selects the channel. ids:
+// (M,) int32 object ids of the spanners; piece_ptr: (M + 1,) int32 offsets
+// into pieces: (P, 5) int32 [shard, rmin, rmax, cmin, cmax], the boxes of
+// centre pixels to visit, at most one a (spanner, shard). mn, inv: (K,)
+// float32; offsets: HOST array of 2 * n_angles ints. Outputs, every entry
+// written: sumsq (n_angles, M) int64, sum (C + C^T)^2 of each spanner's
+// table at each offset; and, unless tables is null, tables (M, levels,
+// n_angles * levels) int32, entry [m, i, a * levels + j] the pairs at offset
+// a of object ids[m] over all its pieces with centre level i and neighbour
+// level j. An id outside 0..K-1 leaves its table and its sum at zero.
+extern "C" int obia_glcm_spanner_hist(
+    const void* lab_base, const void* img_base, int n_shards, long long H,
+    long long W, long long C, int band, const void* ids,
+    const void* piece_ptr, const void* pieces, long long M, const void* mn,
+    const void* inv, long long K, int levels, const int* offsets,
+    int n_angles, void* tables, void* sumsq, void* stream) {
     if (n_angles < 1 || n_angles > GLCM_MAX_ANGLES || levels < 1 ||
-        levels > 256 || M < 1 || n_objects < 1)
+        levels > 256 || M < 1 || M > (1LL << 30) || K < 1 || n_shards < 1 ||
+        H < 1 || W < 1 || H * W >= (1LL << 31) || C < 1 || band < 0 ||
+        band >= C)
         return (int)cudaErrorInvalidValue;
     GlcmOffsets offs;
     for (int a = 0; a < GLCM_MAX_ANGLES; ++a) {
         offs.dr[a] = a < n_angles ? offsets[2 * a] : 0;
         offs.dc[a] = a < n_angles ? offsets[2 * a + 1] : 0;
     }
-    dim3 grid((unsigned int)M, (unsigned int)n_angles);
-    glcm_hist_kernel<<<grid, HIST_THREADS, 0, (cudaStream_t)stream>>>(
-        (const int32_t*)labels, (const float*)band, H, W, pix_stride,
-        (const int32_t*)objs, (const int32_t*)bbox, (const float*)mn,
-        (const float*)inv, n_objects, levels, offs, n_angles, (int*)out);
+    // a table that fits SPAN_TABLE_BYTES takes one 512-thread block, two an
+    // SM; a larger one two blocks of SPAN_THREADS, each holding half
+    const int Lp = levels | 1;
+    const int ncta =
+        (size_t)levels * Lp * sizeof(int) <= SPAN_TABLE_BYTES ? 1 : 2;
+    const int threads = ncta == 1 ? SPAN_THREADS / 2 : SPAN_THREADS;
+    const int rows = (levels + ncta - 1) / ncta;
+    const size_t smem = ((size_t)rows * Lp + SPAN_CELLS) * sizeof(int);
+    int clusters = 0;
+    cudaError_t err = spanner_grid(levels, ncta, threads, smem, &clusters);
+    if (err != cudaSuccess) return (int)err;
+    if (clusters > M * n_angles) clusters = (int)(M * n_angles);
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3((unsigned int)(clusters * ncta), 1, 1);
+    cfg.blockDim = dim3((unsigned int)threads, 1, 1);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = (cudaStream_t)stream;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = (unsigned int)ncta;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    err = cudaLaunchKernelEx(
+        &cfg, glcm_spanner_hist_kernel, (const long long*)lab_base,
+        (const long long*)img_base, n_shards, (int)H, (int)W, (int)C, band,
+        (const int32_t*)ids, (const int32_t*)piece_ptr,
+        (const int32_t*)pieces, (const float*)mn, (const float*)inv, K,
+        levels, rows, offs, M, n_angles, (int*)tables, (long long*)sumsq);
+    if (err != cudaSuccess) return (int)err;
     return (int)cudaGetLastError();
 }

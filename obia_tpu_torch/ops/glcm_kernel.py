@@ -20,23 +20,28 @@ with a halo and boxes clipped to the block's centre, so a pair across a seam
 counts once, on the shard that owns its centre pixel.
 The integer sums are exact, so kernel and twin agree bitwise on them.
 
-:func:`glcm_hist` (``csrc/glcm.cu`` ``glcm_hist_kernel``, which replaces
-``obia_tpu/ops/glcm_pallas.py::_hist_kernel``) counts the same pairs of a
-few objects into their full directed co-occurrence tables, (M, L, A*L)
-int32 indexed [slot, centre level, angle*L + neighbour level]; its twin is
-:func:`glcm_hist_reference`. The sharded GLCM sums those tables over the
-shards for the objects that span a seam, whose sum (C + C^T)^2 is not a sum
-of per-shard values.
+:func:`glcm_spanner_hist` (``csrc/glcm.cu`` ``glcm_spanner_hist_kernel``,
+which replaces ``obia_tpu/ops/glcm_pallas.py::_hist_kernel`` and the psum
+and square after it) serves the sharded GLCM: for the objects that span a
+shard seam, whose sum (C + C^T)^2 is not a sum of per-shard values, it
+counts the same pairs over every shard's piece of each object into one
+directed co-occurrence table, (M, L, A*L) int32 indexed [spanner, centre
+level, angle*L + neighbour level], and gives that table's exact (A, M)
+int64 sum (C + C^T)^2, in one launch a band. Its twin
+:func:`glcm_spanner_hist_reference` sums :func:`glcm_hist_reference`, the
+tables of one shard, over the shards and squares the sum with
+:func:`symmetric_sumsq`.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
 launches = 0  # glcm_sums kernel calls in this process; twins never count
-hist_launches = 0  # glcm_hist kernel launches in this process
+hist_launches = 0  # glcm_spanner_hist kernel launches in this process
+_SUMSQ_CHUNK = 64  # tables the twin squares at a time
 # the most pixels of an object's box (clipped to the raster) that the
 # warp-per-object kernel sums; larger boxes go to the block-per-item kernel.
 # The kernel's own constant is GLCM_SMALL_CAP in csrc/glcm.cu; this mirror
@@ -201,69 +206,171 @@ def _pairs(lab: torch.Tensor, q: torch.Tensor, inb: torch.Tensor,
             q[r0 + dr:r1 + dr, c0 + dc:c1 + dc][ok])
 
 
-def glcm_hist(labels: torch.Tensor, image: torch.Tensor, band: int,
-              objs: torch.Tensor, bboxes: torch.Tensor, mn: torch.Tensor,
-              inv: torch.Tensor, levels: int,
-              offsets: Sequence[Tuple[int, int]]) -> torch.Tensor:
-    """Directed co-occurrence tables of the objects ``objs`` for one band:
-    (M, L, A*L) int32, entry [m, i, a*L + j] the number of pairs at offset
-    a with centre level i and neighbour level j of object ``objs[m]``.
+class SpannerPieces(NamedTuple):
+    """The pieces of M seam spanners as a CSR list, on one device.
 
-    labels, image, band, mn, inv: as :func:`glcm_sums` (mn and inv (K,)).
-    objs: (M,) int32 object ids; bboxes: (M, 4) int32 boxes of the centre
-    pixels to visit for each of them (rmin > rmax: none). The kernel leaves
-    the table of an id outside 0..K-1 at zero (checked on the device, so a
-    launch needs no host sync); the twin raises on one.
+    ids: (M,) int32 object ids, ascending; ptr: (M + 1,) int32, spanner m's
+    pieces are rows ptr[m]..ptr[m+1]-1 of pieces: (P, 5) int32 [shard,
+    rmin, rmax, cmin, cmax], the box of its centre pixels on that shard in
+    the shard's block coordinates, at most one a (spanner, shard), sorted by
+    (spanner, shard)."""
+    ids: torch.Tensor
+    ptr: torch.Tensor
+    pieces: torch.Tensor
+
+
+def spanner_pieces(ids: torch.Tensor, objs: Sequence[torch.Tensor],
+                   boxes: Sequence[torch.Tensor]) -> SpannerPieces:
+    """The CSR list of ``ids`` ((M,) ascending) from each shard s's (M_s,)
+    int32 ids ``objs[s]`` (a subset of ``ids``) and their (M_s, 4) int32
+    boxes ``boxes[s]``, on ``ids``' device, with no host sync."""
+    dev = ids.device
+    M, S = ids.numel(), len(objs)
+    shard = torch.cat([torch.full((o.numel(),), s, dtype=torch.int64,
+                                  device=dev) for s, o in enumerate(objs)])
+    obj = torch.cat([o.to(dev).long() for o in objs])
+    box = torch.cat([b.to(dev).to(torch.int32).reshape(-1, 4)
+                     for b in boxes])
+    rank = torch.searchsorted(ids.long(), obj)
+    order = torch.argsort(rank * S + shard)
+    pieces = torch.cat([shard[:, None].to(torch.int32), box], 1)[order]
+    # index_add_ and not bincount, which reads its input's max on the host
+    ptr = torch.zeros(M + 1, dtype=torch.int64, device=dev)
+    ptr.index_add_(0, rank + 1, torch.ones_like(rank))
+    ptr = torch.cumsum(ptr, 0)
+    return SpannerPieces(ids.to(torch.int32).contiguous(),
+                         ptr.to(torch.int32), pieces.contiguous())
+
+
+def glcm_spanner_hist(labels: Sequence[torch.Tensor],
+                      images: Sequence[torch.Tensor], band: int,
+                      work: SpannerPieces, mn: torch.Tensor,
+                      inv: torch.Tensor, levels: int,
+                      offsets: Sequence[Tuple[int, int]],
+                      tables: bool = True
+                      ) -> Tuple[Optional[torch.Tensor], torch.Tensor]:
+    """The seam spanners' directed tables of one band summed over the
+    shards, (M, L, A*L) int32 (entry [m, i, a*L + j] the pairs at offset a
+    of object ``work.ids[m]`` with centre level i and neighbour level j),
+    or None when ``tables`` is false, and each table's exact sum
+    (C + C^T)^2, (A, M) int64.
+
+    labels, images: every shard's block with its halo, (H, W) int32 and
+    (H, W, C) float32, all of one shape and on one device; ``band`` selects
+    the channel. work: the pieces (:func:`spanner_pieces`); a piece's shard
+    indexes ``labels``. mn, inv: (K,) float32 quantisers, as
+    :func:`glcm_sums`. Without ``tables`` the kernel stores no table, only
+    the sums. The kernel leaves the table and the sum of an id outside
+    0..K-1 at zero (checked on the device, so a launch needs no host sync);
+    the twin raises on one.
     """
-    if labels.device.type == "cpu":
-        return glcm_hist_reference(labels, image, band, objs, bboxes, mn,
-                                   inv, levels, offsets)
-    if labels.device.type != "cuda":
-        raise ValueError(f"glcm_hist: unsupported device {labels.device}")
-    H, W = labels.shape
-    M = objs.shape[0]
+    dev = labels[0].device
+    if dev.type == "cpu":
+        out, sumsq = glcm_spanner_hist_reference(
+            labels, images, band, work, mn, inv, levels, offsets)
+        return (out if tables else None), sumsq
+    if dev.type != "cuda":
+        raise ValueError(f"glcm_spanner_hist: unsupported device {dev}")
+    S = len(labels)
+    if S == 0 or len(images) != S:
+        raise ValueError(f"{S} label blocks and {len(images)} image blocks")
+    H, W = labels[0].shape
+    C = images[0].shape[-1]
+    M, P = work.ids.shape[0], work.pieces.shape[0]
     K = mn.shape[0]
-    _check(labels, (H, W), torch.int32, "labels")
-    if image.dim() != 3 or image.shape[:2] != (H, W):
-        raise ValueError(f"image shape {tuple(image.shape)} does not match "
-                         f"labels {(H, W)}")
-    _check(image, tuple(image.shape), torch.float32, "image")
-    _check(objs, (M,), torch.int32, "objs")
-    _check(bboxes, (M, 4), torch.int32, "bboxes")
+    for s in range(S):
+        _check(labels[s], (H, W), torch.int32, f"labels[{s}]")
+        _check(images[s], (H, W, C), torch.float32, f"images[{s}]")
+    _check(work.ids, (M,), torch.int32, "ids")
+    _check(work.ptr, (M + 1,), torch.int32, "ptr")
+    _check(work.pieces, (P, 5), torch.int32, "pieces")
     _check(mn, (K,), torch.float32, "mn")
     _check(inv, (K,), torch.float32, "inv")
-    for name, t in (("image", image), ("objs", objs), ("bboxes", bboxes),
-                    ("mn", mn), ("inv", inv)):
-        if t.device != labels.device:
-            raise ValueError(f"{name} is on {t.device}, labels on "
-                             f"{labels.device}")
-    C = image.shape[2]
+    A = len(offsets)
+    named = [*(("labels", t) for t in labels), *(("images", t) for t in images),
+             ("ids", work.ids), ("ptr", work.ptr), ("pieces", work.pieces),
+             ("mn", mn), ("inv", inv)]
+    for name, t in named:
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, labels[0] on {dev}")
     if not 0 <= band < C:
         raise IndexError(f"band {band} out of range 0..{C - 1}")
     if not 1 <= levels <= 256:
         raise ValueError(f"levels={levels} out of range 1..256")
-    A = len(offsets)
     if not 1 <= A <= 8:
         raise ValueError(f"{A} offsets: the kernel takes 1..8")
-    out = torch.zeros((M, levels, A * levels), dtype=torch.int32,
-                      device=labels.device)
+    if H * W >= 1 << 31:
+        raise ValueError(f"blocks of {H} x {W} pixels: the kernel takes "
+                         f"fewer than 2^31")
+    out = (torch.empty((M, levels, A * levels), dtype=torch.int32,
+                       device=dev) if tables else None)
+    sumsq = torch.empty((A, M), dtype=torch.int64, device=dev)
     if M == 0:
-        return out
+        return out, sumsq
+    # the blocks' addresses, read by the kernel: one small copy a call, from
+    # pinned memory so that it does not wait for the stream
+    bases = torch.tensor([[t.data_ptr() for t in labels],
+                          [t.data_ptr() for t in images]],
+                         dtype=torch.int64).pin_memory().to(dev,
+                                                            non_blocking=True)
 
     from .. import _build
     lib = _build.load()
     offs = (ctypes.c_int * (2 * A))(*[v for o in offsets for v in o])
-    with torch.cuda.device(labels.device):
-        stream = torch.cuda.current_stream(labels.device).cuda_stream
-        status = lib.obia_glcm_hist(
-            labels.data_ptr(), image.data_ptr() + 4 * band, H, W, C,
-            objs.data_ptr(), bboxes.data_ptr(), mn.data_ptr(), inv.data_ptr(),
-            M, K, levels, offs, A, out.data_ptr(), stream)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        status = lib.obia_glcm_spanner_hist(
+            bases[0].data_ptr(), bases[1].data_ptr(), S, H, W, C, band,
+            work.ids.data_ptr(), work.ptr.data_ptr(),
+            work.pieces.data_ptr(), M, mn.data_ptr(), inv.data_ptr(), K,
+            levels, offs, A, None if out is None else out.data_ptr(),
+            sumsq.data_ptr(), stream)
     if status != 0:
-        raise RuntimeError(f"GLCM histogram kernel launch failed: CUDA error "
-                           f"{status}")
+        raise RuntimeError(f"GLCM spanner histogram kernel launch failed: "
+                           f"CUDA error {status}")
     global hist_launches
     hist_launches += 1
+    return out, sumsq
+
+
+def glcm_spanner_hist_reference(labels: Sequence[torch.Tensor],
+                                images: Sequence[torch.Tensor], band: int,
+                                work: SpannerPieces, mn: torch.Tensor,
+                                inv: torch.Tensor, levels: int,
+                                offsets: Sequence[Tuple[int, int]]
+                                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain-torch twin of :func:`glcm_spanner_hist`: each shard's tables
+    (:func:`glcm_hist_reference`) summed with ``index_add_``, then
+    :func:`symmetric_sumsq`."""
+    M = work.ids.shape[0]
+    L, A = levels, len(offsets)
+    dev = labels[0].device
+    out = torch.zeros((M, L, A * L), dtype=torch.int32, device=dev)
+    spanner = torch.repeat_interleave(
+        torch.arange(M, device=dev), (work.ptr[1:] - work.ptr[:-1]).long())
+    for s, (lab, img) in enumerate(zip(labels, images)):
+        on = work.pieces[:, 0] == s
+        if not bool(on.any()):
+            continue
+        m = spanner[on]
+        out.index_add_(0, m, glcm_hist_reference(
+            lab, img, band, work.ids[m], work.pieces[on, 1:].contiguous(),
+            mn, inv, L, offsets))
+    return out, symmetric_sumsq(out, A, L)
+
+
+def symmetric_sumsq(tables: torch.Tensor, n_angles: int, levels: int
+                    ) -> torch.Tensor:
+    """(A, M) int64 sum over (i, j) of (C + C^T)^2 of (M, L, A*L) directed
+    tables, exact."""
+    M = tables.shape[0]
+    L = levels
+    out = torch.zeros((n_angles, M), dtype=torch.int64, device=tables.device)
+    for a in range(n_angles):
+        for m0 in range(0, M, _SUMSQ_CHUNK):
+            C = tables[m0:m0 + _SUMSQ_CHUNK, :, a * L:(a + 1) * L].long()
+            S = C + C.transpose(1, 2)
+            out[a, m0:m0 + _SUMSQ_CHUNK] = (S * S).sum(dim=(1, 2))
     return out
 
 

@@ -2,9 +2,14 @@
 
 One pass over the label raster accumulates counts and sums, a second the
 centred 2nd/3rd/4th powers (two-pass centring keeps float32 accurate), and
-``scatter_reduce`` gives min and max. The passes are separate functions so
-that the sharded path (``parallel/sharded.py``) can reduce each one over
-the mesh before the next. Definitions are scipy's defaults:
+``scatter_reduce`` gives min and max. The per-pixel terms are float32, as
+the reference's; the passes add them in float64, and the caller rounds each
+sum to float32 once, after the last reduction. So the order in which the
+card's atomics add cannot move a float32 sum unless a float64 sum lies
+within rounding of a float32 boundary, and single-device and sharded runs
+agree as closely. The passes are separate functions so that the sharded
+path (``parallel/sharded.py``) can reduce each one over the mesh before the
+next. Definitions are scipy's defaults:
 variance is biased (ddof=0), skewness the Fisher-Pearson g1 and kurtosis the
 Fisher excess g2, both with bias=True. An empty object gets NaN everywhere;
 an object with zero variance gets NaN skewness and kurtosis.
@@ -64,11 +69,11 @@ def segment_spectral_moments(image: torch.Tensor, labels: torch.Tensor,
     [0, K) (negative = outside every object)."""
     K = int(num_segments)
     pix = moment_pixels(image, labels, K, valid)
-    s1c = moment_pass1(pix, K)
+    s1c = moment_pass1(pix, K).float()  # float64 sums, rounded once
     cnt1 = s1c[:, 0]
     s1 = s1c[:, 1:]
     mean = s1 / torch.clamp(cnt1[:, None], min=1.0)
-    p2 = moment_pass2(pix, mean, K)
+    p2 = moment_pass2(pix, mean, K).float()
     xmin, xmax = moment_minmax(pix, K)
     return _moments_finalize(cnt1, s1, p2, xmin, xmax, image.shape[2])
 
@@ -89,19 +94,21 @@ def moment_pixels(image: torch.Tensor, labels: torch.Tensor, K: int,
 
 
 def moment_pass1(pix, K: int) -> torch.Tensor:
-    """(K, 1+C): [count | sum x per channel] (reference ``_moment_pass1``)."""
+    """(K, 1+C) float64: [count | sum x per channel] (reference
+    ``_moment_pass1``), float32 terms added in float64."""
     x, _, seg, okf = pix
-    return segment_sum(torch.cat([okf[:, None], x * okf[:, None]], dim=1),
-                       seg, K + 1)[:K]
+    return segment_sum(torch.cat([okf[:, None], x * okf[:, None]],
+                                 dim=1).double(), seg, K + 1)[:K]
 
 
 def moment_pass2(pix, mean: torch.Tensor, K: int) -> torch.Tensor:
-    """(K, 3C) centred 2nd/3rd/4th power sums about the objects' means
-    (reference ``_moment_pass2``)."""
+    """(K, 3C) float64 centred 2nd/3rd/4th power sums about the objects'
+    float32 means (reference ``_moment_pass2``), float32 terms added in
+    float64."""
     x, lab, seg, okf = pix
     d = (x - mean[lab.clamp(0, max(K - 1, 0))]) * okf[:, None]
     d2 = d * d
-    return segment_sum(torch.cat([d2, d2 * d, d2 * d2], dim=1), seg,
+    return segment_sum(torch.cat([d2, d2 * d, d2 * d2], dim=1).double(), seg,
                        K + 1)[:K]
 
 

@@ -14,10 +14,11 @@
 3. Per band and shard, ``glcm_sums`` gives the seven pair sums and the
    local sum (C + C^T)^2, summed over the shards. That squared sum is exact
    for an object on one shard; for a seam spanner it is not a sum of
-   per-shard values, so ``glcm_hist`` gives the spanner's directed table on
-   each shard, the tables are summed into one accumulator as each shard
-   finishes, and the exact int64 sum (C + C^T)^2 of the summed table
-   replaces the spanner's entry.
+   per-shard values, so one ``glcm_spanner_hist`` launch a band counts every
+   spanner's pairs over all its pieces, on every shard, into one table and
+   writes that table's exact int64 sum (C + C^T)^2 over the spanner's
+   entry. The spanners' pieces are a CSR list (:func:`spanner_groups`),
+   built once per call.
 4. ``sums_from_kernel`` and ``glcm_props_from_sums`` finish, as on one
    device.
 
@@ -34,13 +35,13 @@ from .. import telemetry
 from ..ops.glcm import (DEFAULT_ANGLES, GLCM_PROP_NAMES, _bboxes_from_mins,
                         _check_levels, angle_offsets, bbox_minmax,
                         glcm_props_from_sums, quant_inv, sums_from_kernel)
-from ..ops.glcm_kernel import glcm_hist, glcm_sums
+from ..ops.glcm_kernel import (glcm_spanner_hist, glcm_sums,
+                               spanner_pieces, symmetric_sumsq)
 from .halo import halo2d
 from .mesh import Mesh, ShardedRaster, pmin, psum
 from .sharded import shard_presence
 
 _EMPTY_BOX = (1, 0, 1, 0)  # rmin > rmax marks a box with no pixel
-_SUMSQ_CHUNK = 64           # spanner tables squared at a time
 
 
 def glcm_prepass(mesh: Mesh, image: ShardedRaster, labels: ShardedRaster,
@@ -98,19 +99,40 @@ def shard_inputs(mesh: Mesh, image: ShardedRaster, labels: ShardedRaster,
     return out
 
 
-def symmetric_sumsq(tables: torch.Tensor, n_angles: int, levels: int
-                    ) -> torch.Tensor:
-    """(A, M) int64 sum over (i, j) of (C + C^T)^2 of (M, L, A*L) directed
-    tables, exact."""
-    M = tables.shape[0]
-    L = levels
-    out = torch.zeros((n_angles, M), dtype=torch.int64, device=tables.device)
-    for a in range(n_angles):
-        for m0 in range(0, M, _SUMSQ_CHUNK):
-            C = tables[m0:m0 + _SUMSQ_CHUNK, :, a * L:(a + 1) * L].long()
-            S = C + C.transpose(1, 2)
-            out[a, m0:m0 + _SUMSQ_CHUNK] = (S * S).sum(dim=(1, 2))
-    return out
+def spanner_groups(mesh: Mesh, shards, spanners: torch.Tensor):
+    """Per device that holds shards: (its shards' halo'd label blocks, their
+    image blocks, the CSR list of the pieces on them of every seam spanner,
+    ``spanners`` being the (M,) ascending spanner ids), from what
+    :func:`shard_inputs` gives."""
+    by_dev: Dict[torch.device, list] = {}
+    for (i, j), v in shards.items():
+        by_dev.setdefault(mesh.device_of(i, j), []).append(v)
+    return [([v[0] for v in vs], [v[1] for v in vs],
+             spanner_pieces(spanners.to(dev), [v[3] for v in vs],
+                            [v[4] for v in vs]))
+            for dev, vs in by_dev.items()]
+
+
+def spanner_sums(groups, band: int, mn: torch.Tensor, inv: torch.Tensor,
+                 levels: int, offsets, isums: torch.Tensor) -> None:
+    """Every seam spanner's exact sum (C + C^T)^2 of one band, written into
+    ``isums[:, spanners, 6]``. Where one device holds every shard, one
+    launch gives the sums and stores no table; where several do, each
+    launches on its own shards and the tables are summed and squared on
+    ``isums``' device."""
+    if len(groups) == 1 and groups[0][0][0].device == isums.device:
+        labs, imgs, work = groups[0]
+        _, sumsq = glcm_spanner_hist(labs, imgs, band, work, mn, inv, levels,
+                                     offsets, tables=False)
+    else:
+        total = 0
+        for labs, imgs, work in groups:
+            dev = labs[0].device
+            tables, _ = glcm_spanner_hist(labs, imgs, band, work, mn.to(dev),
+                                          inv.to(dev), levels, offsets)
+            total = total + tables.to(isums.device)
+        sumsq = symmetric_sumsq(total, len(offsets), levels)
+    isums[:, groups[0][2].ids.to(isums.device).long(), 6] = sumsq
 
 
 def sharded_glcm_sums(mesh: Mesh, image: ShardedRaster,
@@ -139,13 +161,12 @@ def sharded_glcm_sums(mesh: Mesh, image: ShardedRaster,
         bboxes = _bboxes_from_mins(mins)
         spanners = torch.nonzero(multi).reshape(-1)
         M = int(spanners.numel()) if compute_asm else 0
-        rank = torch.full((K,), -1, dtype=torch.int64, device=home)
-        rank[spanners] = torch.arange(spanners.numel(), device=home)
 
     with telemetry.stage("glcm.halo"):
         shards = shard_inputs(mesh, image, labels, bboxes,
                               multi if M else torch.zeros_like(multi),
                               present, d)
+        groups = spanner_groups(mesh, shards, spanners) if M else []
 
     out = []
     for bi, b in enumerate(band_ids):
@@ -153,25 +174,16 @@ def sharded_glcm_sums(mesh: Mesh, image: ShardedRaster,
         inv = quant_inv(-mins[:, 5 + 2 * bi] - mn, L).contiguous()
         isums = torch.zeros((A, K, 7), dtype=torch.int64, device=home)
         hsum = torch.zeros((A, K), dtype=torch.float64, device=home)
-        acc = (torch.zeros((M, L, A * L), dtype=torch.int32, device=home)
-               if M else None)
-        for lab_h, img_h, loc, objs, obox in shards.values():
+        for lab_h, img_h, loc, _, _ in shards.values():
             mn_s, inv_s = mn.to(lab_h.device), inv.to(lab_h.device)
             with telemetry.stage("glcm.sums"):
                 s_i, s_h = glcm_sums(lab_h, img_h, b, loc, mn_s, inv_s, L,
                                      offsets)
                 isums += s_i.to(home)
                 hsum += s_h.to(home)
-            if acc is not None and objs.numel():
-                with telemetry.stage("glcm.hist"):
-                    # one shard's tables at a time into the accumulator
-                    acc.index_add_(0, rank[objs.to(home).long()], glcm_hist(
-                        lab_h, img_h, b, objs, obox, mn_s, inv_s, L,
-                        offsets).to(home))
-        if acc is not None:
-            with telemetry.stage("glcm.spanner_sumsq"):
-                isums[:, spanners, 6] = symmetric_sumsq(acc, A, L)
-            del acc
+        if groups:
+            with telemetry.stage("glcm.hist"):
+                spanner_sums(groups, b, mn, inv, L, offsets, isums)
         out.append((isums, hsum))
     return out
 

@@ -267,12 +267,13 @@ def sharded_spectral_moments(mesh: Mesh, image: ShardedRaster,
     K = int(num_segments)
     pix = {(i, j): moment_pixels(image.block(i, j), labels.block(i, j), K)
            for i, j in mesh.shards()}
-    s1c = psum(mesh, [moment_pass1(p, K) for p in pix.values()])
+    # float64 sums, each rounded once after its psum
+    s1c = psum(mesh, [moment_pass1(p, K) for p in pix.values()]).float()
     cnt1 = s1c[:, 0]
     s1 = s1c[:, 1:]
     mean = s1 / torch.clamp(cnt1[:, None], min=1.0)
     p2 = psum(mesh, [moment_pass2(p, mean.to(p[0].device), K)
-                     for p in pix.values()])
+                     for p in pix.values()]).float()
     mm = [moment_minmax(p, K) for p in pix.values()]
     xmin = pmin(mesh, [m[0] for m in mm])
     xmax = pmax(mesh, [m[1] for m in mm])

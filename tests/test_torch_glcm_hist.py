@@ -1,17 +1,21 @@
-"""The seam-spanner histogram (ops/glcm_kernel.glcm_hist and its twin) and
-the sharded GLCM (parallel/glcm_sharded.py) against the JAX package on the
-8-device CPU mesh of tests/conftest.py.
+"""The seam-spanner histogram (ops/glcm_kernel.glcm_spanner_hist, its twin,
+and the one-shard twin glcm_hist_reference) and the sharded GLCM
+(parallel/glcm_sharded.py) against the JAX package on the 8-device CPU mesh
+of tests/conftest.py.
 
-Bars: the twin's directed tables equal, integer for integer, to JAX's
-``_glcm_hist_call`` run in interpret mode on the same halo'd shard windows
-(every slot it visits); the sharded props equal to JAX's sharded Pallas
-route (interpret mode) at rtol 2e-4 / atol 2e-5, as tests/test_parallel.py
-holds that route, and the correlation to a float64 oracle at rtol 1e-5
-(JAX forms it from float32 moment differences); the sharded integer sums,
-spanners' sum (C + C^T)^2 included, bitwise equal to the port's
-single-device sums of the same labels. The CUDA kernel is held against the
-twin in the tests marked ``cuda``, which run only on a card (they import no
-jax: ``pytest --noconftest -m cuda``).
+Bars: the one-shard twin's directed tables equal, integer for integer, to
+JAX's ``_glcm_hist_call`` run in interpret mode on the same halo'd shard
+windows (every slot it visits); the all-shards twin's tables and int64 sum
+(C + C^T)^2 equal to JAX's tables summed over the shards (each masked by the
+shard's visit set), squared in numpy int64; the CSR piece list equal to what
+``shard_inputs`` hands each shard; the sharded props equal to JAX's sharded
+Pallas route (interpret mode) at rtol 2e-4 / atol 2e-5, as
+tests/test_parallel.py holds that route, and the correlation to a float64
+oracle at rtol 1e-5 (JAX forms it from float32 moment differences); the
+sharded integer sums, spanners' sum (C + C^T)^2 included, bitwise equal to
+the port's single-device sums of the same labels. The CUDA kernel is held
+against the twin in the tests marked ``cuda``, which run only on a card
+(they import no jax: ``pytest --noconftest -m cuda``).
 """
 import numpy as np
 import pytest
@@ -89,6 +93,21 @@ def hybrid_scene(seed=42):
     return img, lab, 4
 
 
+def dense_scene(seed=3):
+    """A 128 x 192 raster of random levels, one object over nearly all of it
+    (every shard) and two small spanners: at an angle the big one's table
+    has more nonzero cells than a block of the kernel lists (SPAN_CELLS in
+    csrc/glcm.cu) at L = 100 (one block) and in each half at L = 180, 255
+    and 256 (two blocks)."""
+    rng = np.random.default_rng(seed)
+    lab = np.zeros((128, 192), np.int32)
+    lab[:8, :8] = 1             # inside shard (0, 0)
+    lab[60:70, 40:50] = 2       # across the row seam at 64
+    lab[100:110, 140:190] = 3   # across the column seam at 144
+    img = rng.integers(0, 256, (128, 192, 2)).astype(np.float32)
+    return img, lab, 4
+
+
 SCENES = {"seams": seam_scene, "random": random_scene,
           "interior_hole": interior_hole_scene,
           "no_spanners": no_spanner_scene, "hybrid": hybrid_scene}
@@ -97,6 +116,22 @@ SCENES = {"seams": seam_scene, "random": random_scene,
 @pytest.fixture(scope="module")
 def mesh():
     return tmesh.make_mesh(8, ["cpu"])
+
+
+@pytest.fixture(scope="module")
+def jax_hists():
+    """(scene, levels) -> what :func:`_jax_shard_hists` gives for the
+    scene's last band, each interpret run made once a module."""
+    cache = {}
+
+    def get(scene, levels):
+        if (scene, levels) not in cache:
+            img, lab, K = SCENES[scene]()
+            cache[scene, levels] = _jax_shard_hists(img, lab, K, levels,
+                                                    img.shape[2] - 1)
+        return cache[scene, levels]
+
+    return get
 
 
 def _sharded(mesh, img, lab):
@@ -154,8 +189,9 @@ def _jax_shard_hists(img, lab, K, L, band, d=2):
 
 
 def _port_shard_inputs(mesh, img, lab, K, L, band, d=2):
-    """Per shard, what sharded_glcm_sums hands glcm_hist: the halo'd
-    blocks, the spanners present, their boxes in halo coordinates."""
+    """Per shard, what sharded_glcm_sums hands the histogram: the halo'd
+    blocks, the spanners present, their boxes in halo coordinates; and the
+    spanners' CSR piece list over all shards (one device)."""
     timg, tlab = _sharded(mesh, img, lab)
     mins, multi, present = tgs.glcm_prepass(mesh, timg, tlab, K, (band,))
     mn = mins[:, 4].contiguous()
@@ -165,23 +201,27 @@ def _port_shard_inputs(mesh, img, lab, K, L, band, d=2):
     out = {key: (v[0], v[1], v[3], v[4]) for key, v in shards.items()}
     # the halo'd blocks are the neighbours' pixels
     lab_h = out[(1, 2)][0]
+    h, w = lab.shape[0] // 2, lab.shape[1] // 4
     np.testing.assert_array_equal(
         lab_h.cpu().numpy(), np.pad(lab, d, constant_values=-1)[
-            16:16 + 16 + 2 * d, 24:24 + 12 + 2 * d])
-    return mn.to(lab_h.device), inv.to(lab_h.device), out
+            h:h + h + 2 * d, 2 * w:2 * w + w + 2 * d])
+    spanners = torch.nonzero(multi).reshape(-1)
+    (group,) = tgs.spanner_groups(mesh, shards, spanners)
+    return mn.to(lab_h.device), inv.to(lab_h.device), out, group
 
 
 @pytest.mark.parametrize("scene,levels", [("seams", 16), ("seams", 256),
                                           ("hybrid", 32)])
-def test_hist_twin_matches_jax_interpret(mesh, scene, levels):
+def test_hist_twin_matches_jax_interpret(mesh, jax_hists, scene, levels):
     img, lab, K = SCENES[scene]()
     band = img.shape[2] - 1
-    mrank, want = _jax_shard_hists(img, lab, K, levels, band)
-    mn, inv, shards = _port_shard_inputs(mesh, img, lab, K, levels, band)
+    mrank, want = jax_hists(scene, levels)
+    mn, inv, shards, _ = _port_shard_inputs(mesh, img, lab, K, levels, band)
     spanners, n_compared = set(), 0
     for key, (lab_h, img_h, objs, boxes) in shards.items():
-        got = glcm_kernel.glcm_hist(lab_h, img_h, band, objs, boxes, mn, inv,
-                                    levels, OFFSETS).numpy()
+        got = glcm_kernel.glcm_hist_reference(lab_h, img_h, band, objs,
+                                              boxes, mn, inv, levels,
+                                              OFFSETS).numpy()
         visited, hout = want[key]
         slot_of = {int(mrank[k]): m for m, k in enumerate(objs.tolist())}
         # JAX visits every spanner whose box meets the shard; the port
@@ -199,6 +239,89 @@ def test_hist_twin_matches_jax_interpret(mesh, scene, levels):
             n_compared += slot in slot_of
         spanners |= set(slot_of)
     assert len(spanners) >= 2 and n_compared >= 2 * len(spanners)
+
+
+# the interpret runs of test_hist_twin_matches_jax_interpret, reused
+@pytest.mark.parametrize("scene,levels", [("seams", 16), ("seams", 256),
+                                          ("hybrid", 32)])
+def test_spanner_twin_matches_jax_summed_over_shards(mesh, jax_hists, scene,
+                                                     levels):
+    img, lab, K = SCENES[scene]()
+    band = img.shape[2] - 1
+    A = len(OFFSETS)
+    mrank, want = jax_hists(scene, levels)
+    mn, inv, shards, (labs, imgs, work) = _port_shard_inputs(
+        mesh, img, lab, K, levels, band)
+    # JAX: each shard's visited slots, summed over the shards
+    total = {}
+    for visited, hout in want.values():
+        for slot in visited.tolist():
+            t = np.concatenate([hout[slot, :levels, a * 256:a * 256 + levels]
+                                for a in range(A)], axis=1).astype(np.int64)
+            total[slot] = total.get(slot, 0) + t
+    tables, sumsq = glcm_kernel.glcm_spanner_hist(labs, imgs, band, work, mn,
+                                                  inv, levels, OFFSETS)
+    ids = work.ids.tolist()
+    assert len(ids) >= 2 and tables.shape == (len(ids), levels, A * levels)
+    assert sumsq.dtype == torch.int64 and sumsq.shape == (A, len(ids))
+    # every slot JAX counted a pair into is a spanner of the port's
+    assert {s for s, t in total.items() if t.any()} <= {int(mrank[k])
+                                                       for k in ids}
+    for m, k in enumerate(ids):
+        want_t = total[int(mrank[k])]
+        np.testing.assert_array_equal(tables[m].numpy(), want_t,
+                                      err_msg=f"spanner {k}")
+        for a in range(A):
+            C = want_t[:, a * levels:(a + 1) * levels]
+            assert sumsq[a, m].item() == int(((C + C.T) ** 2).sum()), (k, a)
+
+
+@pytest.mark.parametrize("scene", sorted(SCENES))
+def test_spanner_pieces_match_shard_inputs(mesh, scene):
+    img, lab, K = SCENES[scene]()
+    timg, tlab = _sharded(mesh, img, lab)
+    mins, multi, present = tgs.glcm_prepass(mesh, timg, tlab, K, (0,))
+    shards = tgs.shard_inputs(mesh, timg, tlab, tg._bboxes_from_mins(mins),
+                              multi, present, 2)
+    spanners = torch.nonzero(multi).reshape(-1)
+    (labs, imgs, work), = tgs.spanner_groups(mesh, shards, spanners)
+    assert torch.equal(work.ids, spanners.to(torch.int32))
+    ptr = work.ptr.long()
+    assert ptr[0] == 0 and ptr[-1] == work.pieces.shape[0]
+    assert bool((ptr[1:] >= ptr[:-1]).all())
+    spanner = torch.repeat_interleave(torch.arange(len(spanners)),
+                                      ptr[1:] - ptr[:-1])
+    key = spanner * len(shards) + work.pieces[:, 0].long()
+    assert bool((key[1:] > key[:-1]).all())     # by (spanner, shard)
+    for s, (lab_h, img_h, _, objs, obox) in enumerate(shards.values()):
+        assert labs[s] is lab_h and imgs[s] is img_h
+        on = work.pieces[:, 0] == s
+        assert torch.equal(work.ids[spanner[on]], objs)
+        assert torch.equal(work.pieces[on, 1:], obox)
+    # every spanner lies on at least two shards
+    assert bool((ptr[1:] - ptr[:-1] >= 2).all())
+
+
+@pytest.mark.parametrize("scene", ["seams", "hybrid"])
+def test_shards_on_two_devices_sum_their_tables(scene):
+    """Shards placed on two devices ("cpu" and "cpu:0" name two): a launch
+    on each, the tables summed and squared on the home device, give the
+    one-device sums."""
+    img, lab, K = SCENES[scene]()
+    one = tmesh.make_mesh(8, ["cpu"])
+    two = tmesh.make_mesh(8, ["cpu", "cpu:0"])
+    timg, tlab = _sharded(two, img, lab)
+    mins, multi, present = tgs.glcm_prepass(two, timg, tlab, K, (0,))
+    shards = tgs.shard_inputs(two, timg, tlab, tg._bboxes_from_mins(mins),
+                              multi, present, 2)
+    groups = tgs.spanner_groups(two, shards,
+                                torch.nonzero(multi).reshape(-1))
+    assert len(groups) == 2
+    want = tgs.sharded_glcm_sums(one, *_sharded(one, img, lab), K, levels=64)
+    got = tgs.sharded_glcm_sums(two, timg, tlab, K, levels=64)
+    for (gi, gh), (wi, wh) in zip(got, want):
+        assert torch.equal(gi, wi)
+        assert torch.equal(gh, wh)
 
 
 def test_clip_local_matches_jax():
@@ -298,45 +421,54 @@ def test_compute_asm_off_skips_the_histogram(mesh):
 
 def test_cpu_tensors_take_the_twin_and_count_no_launch(mesh):
     img, lab, K = seam_scene()
-    mn, inv, shards = _port_shard_inputs(mesh, img, lab, K, 16, 0)
-    args = shards[(0, 0)]
+    mn, inv, _, (labs, imgs, work) = _port_shard_inputs(mesh, img, lab, K,
+                                                        16, 0)
+    M, A = work.ids.numel(), len(OFFSETS)
     before = glcm_kernel.hist_launches
-    got = glcm_kernel.glcm_hist(args[0], args[1], 0, args[2], args[3], mn,
-                                inv, 16, OFFSETS)
-    want = glcm_kernel.glcm_hist_reference(args[0], args[1], 0, args[2],
-                                           args[3], mn, inv, 16, OFFSETS)
+    got, got_sq = glcm_kernel.glcm_spanner_hist(labs, imgs, 0, work, mn, inv,
+                                                16, OFFSETS)
+    none, sums_only = glcm_kernel.glcm_spanner_hist(
+        labs, imgs, 0, work, mn, inv, 16, OFFSETS, tables=False)
+    want, want_sq = glcm_kernel.glcm_spanner_hist_reference(
+        labs, imgs, 0, work, mn, inv, 16, OFFSETS)
     assert glcm_kernel.hist_launches == before
     assert got.dtype == torch.int32 and torch.equal(got, want)
-    assert got.shape == (args[2].numel(), 16, 4 * 16)
+    assert got_sq.dtype == torch.int64 and torch.equal(got_sq, want_sq)
+    assert got.shape == (M, 16, A * 16) and got_sq.shape == (A, M)
     assert int(got.sum()) > 0
+    assert none is None and torch.equal(sums_only, want_sq)
 
 
 def test_hist_other_devices_raise_instead_of_falling_back(mesh):
     img, lab, K = seam_scene()
-    mn, inv, shards = _port_shard_inputs(mesh, img, lab, K, 16, 0)
-    lab_h, img_h, objs, boxes = shards[(0, 0)]
+    mn, inv, _, (labs, imgs, work) = _port_shard_inputs(mesh, img, lab, K,
+                                                        16, 0)
     with pytest.raises(ValueError, match="unsupported device"):
-        glcm_kernel.glcm_hist(lab_h.to("meta"), img_h, 0, objs, boxes, mn,
-                              inv, 16, OFFSETS)
+        glcm_kernel.glcm_spanner_hist([t.to("meta") for t in labs], imgs, 0,
+                                      work, mn, inv, 16, OFFSETS)
 
 
 def test_hist_counts_every_pair_of_a_whole_raster():
-    """Whole-raster boxes: each object's table holds exactly the n pairs
-    of the sums at every angle, and its sum (C + C^T)^2 the sums' value."""
+    """One shard, the whole raster, every object a spanner with its own box:
+    each object's table holds exactly the n pairs of the sums at every
+    angle, and its sum (C + C^T)^2 the sums' value."""
     img, lab, K = seam_scene()
     image, labels = torch.as_tensor(img), torch.as_tensor(lab)
     mins = tg.bbox_minmax(image, labels, K, (1,))
     boxes = tg._bboxes_from_mins(mins)
     mn = mins[:, 4].contiguous()
     inv = tg.quant_inv(-mins[:, 5] - mn, 64).contiguous()
-    objs = torch.arange(K, dtype=torch.int32)
-    tables = glcm_kernel.glcm_hist(labels, image, 1, objs, boxes, mn, inv,
-                                   64, OFFSETS)
+    work = glcm_kernel.spanner_pieces(torch.arange(K, dtype=torch.int32),
+                                      [torch.arange(K, dtype=torch.int32)],
+                                      [boxes])
+    tables, sumsq = glcm_kernel.glcm_spanner_hist([labels], [image], 1, work,
+                                                  mn, inv, 64, OFFSETS)
     isums, _ = glcm_kernel.glcm_sums(labels, image, 1, boxes, mn, inv, 64,
                                      OFFSETS)
     per_angle = tables.view(K, 64, len(OFFSETS), 64).sum(dim=(1, 3))
     assert torch.equal(per_angle.T.long(), isums[:, :, 0])
-    assert torch.equal(tgs.symmetric_sumsq(tables, len(OFFSETS), 64),
+    assert torch.equal(sumsq, isums[:, :, 6])
+    assert torch.equal(glcm_kernel.symmetric_sumsq(tables, len(OFFSETS), 64),
                        isums[:, :, 6])
 
 
@@ -348,47 +480,109 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("levels", [16, 256])
+@pytest.mark.parametrize("levels", [1, 2, 16, 180, 255, 256])
 def test_cuda_hist_matches_twin(cuda_device, levels):
     img, lab, K = seam_scene()
     cmesh = tmesh.make_mesh(8, [cuda_device])
+    A = len(OFFSETS)
     for band in range(img.shape[2]):
-        mn, inv, shards = _port_shard_inputs(cmesh, img, lab, K, levels, band)
-        for key, (lab_h, img_h, objs, boxes) in shards.items():
-            if objs.numel() == 0:
-                continue
-            before = glcm_kernel.hist_launches
-            got = glcm_kernel.glcm_hist(lab_h, img_h, band, objs, boxes, mn,
-                                        inv, levels, OFFSETS)
-            torch.cuda.synchronize()
-            assert glcm_kernel.hist_launches == before + 1
-            want = glcm_kernel.glcm_hist_reference(
-                lab_h, img_h, band, objs, boxes, mn, inv, levels, OFFSETS)
-            assert torch.equal(got, want), (key, band)
+        mn, inv, _, (labs, imgs, work) = _port_shard_inputs(
+            cmesh, img, lab, K, levels, band)
+        n_pieces = (work.ptr[1:] - work.ptr[:-1]).cpu()
+        box = work.pieces[:, 1:].cpu()
+        assert int(n_pieces.max()) == 4            # the corner spanner
+        assert bool(((box[:, 0] == box[:, 1])       # a 1-pixel piece
+                     & (box[:, 2] == box[:, 3])).any())
+        before = glcm_kernel.hist_launches
+        got, got_sq = glcm_kernel.glcm_spanner_hist(
+            labs, imgs, band, work, mn, inv, levels, OFFSETS)
+        again, again_sq = glcm_kernel.glcm_spanner_hist(
+            labs, imgs, band, work, mn, inv, levels, OFFSETS)
+        none, sums_only = glcm_kernel.glcm_spanner_hist(
+            labs, imgs, band, work, mn, inv, levels, OFFSETS, tables=False)
+        torch.cuda.synchronize()
+        assert glcm_kernel.hist_launches == before + 3
+        want, want_sq = glcm_kernel.glcm_spanner_hist_reference(
+            labs, imgs, band, work, mn, inv, levels, OFFSETS)
+        assert torch.equal(got, want), (levels, band)
+        assert torch.equal(got_sq, want_sq), (levels, band)
+        assert torch.equal(got, again) and torch.equal(got_sq, again_sq)
+        assert none is None and torch.equal(sums_only, want_sq)
+
+
+def span_define(name):
+    """A #define of the spanner kernel in csrc/glcm.cu: SPAN_CELLS, the
+    nonzero cells a block lists, or SPAN_TABLE_BYTES, the most table rows
+    a block holds."""
+    import re
+    from pathlib import Path
+
+    src = Path(glcm_kernel.__file__).parents[1] / "csrc" / "glcm.cu"
+    return int(re.search(rf"#define {name} (\d+)", src.read_text())[1])
+
+
+def span_rows(levels):
+    """The rows of the table a block holds, as the kernel's launcher splits
+    it: all of them where the table fits SPAN_TABLE_BYTES, else half."""
+    whole = levels * (levels | 1) * 4 <= span_define("SPAN_TABLE_BYTES")
+    return levels if whole else (levels + 1) // 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("levels", [100, 180, 255, 256])
+def test_cuda_hist_overflowing_the_cell_list(cuda_device, levels):
+    """Tables with more nonzero cells than a block lists take the whole-row
+    scan: the sums, with and without the tables, equal the twin's."""
+    img, lab, K = dense_scene()
+    cmesh = tmesh.make_mesh(8, [cuda_device])
+    mn, inv, _, (labs, imgs, work) = _port_shard_inputs(cmesh, img, lab, K,
+                                                        levels, 0)
+    A, M = len(OFFSETS), work.ids.numel()
+    want, want_sq = glcm_kernel.glcm_spanner_hist_reference(
+        labs, imgs, 0, work, mn, inv, levels, OFFSETS)
+    rows = span_rows(levels)
+    cells = (want.view(M, levels, A, levels) > 0).cpu()
+    most = max(int(cells[:, r:r + rows].sum(dim=(1, 3)).max())
+               for r in range(0, levels, rows))
+    assert most > span_define("SPAN_CELLS")
+    got, got_sq = glcm_kernel.glcm_spanner_hist(labs, imgs, 0, work, mn, inv,
+                                                levels, OFFSETS)
+    _, sums_only = glcm_kernel.glcm_spanner_hist(
+        labs, imgs, 0, work, mn, inv, levels, OFFSETS, tables=False)
+    assert torch.equal(got, want) and torch.equal(got_sq, want_sq)
+    assert torch.equal(sums_only, want_sq)
 
 
 @pytest.mark.cuda
 def test_cuda_hist_leaves_unknown_ids_empty(cuda_device):
     img, lab, K = seam_scene()
     cmesh = tmesh.make_mesh(8, [cuda_device])
-    mn, inv, shards = _port_shard_inputs(cmesh, img, lab, K, 16, 0)
-    lab_h, img_h, objs, boxes = shards[(1, 1)]
-    bad = objs.clone()
-    bad[0] = K                      # no such object
-    got = glcm_kernel.glcm_hist(lab_h, img_h, 0, bad, boxes, mn, inv, 16,
-                                OFFSETS)
-    want = glcm_kernel.glcm_hist(lab_h, img_h, 0, objs, boxes, mn, inv, 16,
-                                 OFFSETS)
+    mn, inv, _, (labs, imgs, work) = _port_shard_inputs(cmesh, img, lab, K,
+                                                        16, 0)
+    ids = work.ids.clone()
+    ids[0] = K                      # no such object
+    bad = glcm_kernel.SpannerPieces(ids, work.ptr, work.pieces)
+    got, got_sq = glcm_kernel.glcm_spanner_hist(labs, imgs, 0, bad, mn, inv,
+                                                16, OFFSETS)
+    _, sums_only = glcm_kernel.glcm_spanner_hist(labs, imgs, 0, bad, mn, inv,
+                                                 16, OFFSETS, tables=False)
+    want, want_sq = glcm_kernel.glcm_spanner_hist(labs, imgs, 0, work, mn,
+                                                  inv, 16, OFFSETS)
     assert int(got[0].abs().sum()) == 0 and int(want[0].sum()) > 0
+    assert int(got_sq[:, 0].abs().sum()) == 0
     assert torch.equal(got[1:], want[1:])
+    assert torch.equal(got_sq[:, 1:], want_sq[:, 1:])
+    assert torch.equal(sums_only, got_sq)
 
 
 @pytest.mark.cuda
 def test_cuda_sharded_sums_equal_single_device(cuda_device):
     img, lab, K = seam_scene()
     cmesh = tmesh.make_mesh(8, [cuda_device])
+    before = glcm_kernel.hist_launches
     per_band = tgs.sharded_glcm_sums(cmesh, *_sharded(cmesh, img, lab), K,
                                      levels=256)
+    assert glcm_kernel.hist_launches == before + len(per_band) == before + 2
     image = torch.as_tensor(img, device=cuda_device)
     labels = torch.as_tensor(lab, device=cuda_device)
     mins = tg.bbox_minmax(image, labels, K, (0, 1))

@@ -113,6 +113,33 @@ def test_native_library_is_built_into_build_native():
     assert native.load() is native.load()
 
 
+def _compiled_sources():
+    from obia_tpu_torch import _build
+    return [native.SRC, *_build._sources()]
+
+
+@pytest.mark.parametrize("source", _compiled_sources(),
+                         ids=lambda p: p.name)
+def test_every_compiled_source_ships_in_the_wheel(source):
+    """A wheel carries a package's files only where
+    ``[tool.setuptools.package-data]`` lists them, and the port compiles
+    these from beside its modules at first use."""
+    import fnmatch
+    import tomllib
+    from pathlib import Path
+
+    repo = Path(__file__).resolve().parent.parent
+    data = tomllib.loads((repo / "pyproject.toml").read_text())
+    globs = data["tool"]["setuptools"]["package-data"]
+    rel = source.relative_to(repo)
+    assert any(
+        fnmatch.fnmatch(rel.relative_to(Path(*pkg.split("."))).as_posix(),
+                        pattern)
+        for pkg, patterns in globs.items()
+        if rel.is_relative_to(Path(*pkg.split(".")))
+        for pattern in patterns), f"{rel} is in no package-data glob"
+
+
 TIFFS = {
     "deflate_tiled_u16": dict(dtype=np.uint16, compression="deflate",
                               tiled=True, crs="EPSG:32610"),

@@ -10,7 +10,13 @@ covariance as float32 differences of moments near mu^2 (up to 255^2), which
 costs it up to ~1e-3 on low-contrast objects, while the port finishes in
 float64 from exact sums (tests/test_torch_glcm.py holds it to a float64
 oracle at rtol 1e-5); and the JAX-fitted forest, carried across with
-``forest_from_jax``, giving the JAX probabilities to atol 1e-6.
+``forest_from_jax``, giving the JAX probabilities to atol 1e-6. The
+moments formed from sums (mean, variance, skewness, kurtosis) are held, at
+the same bar, to JAX's moments of the same labels with only the sums
+widened to float64 (``test_torch_stats.jax_moments64``), as the port adds
+its float32 terms in float64 and rounds once; and to the shipped float32
+function at atol 2e-4, whose float32 sums miss the port's by up to 1.1e-4
+past rtol 2e-4 in kurtosis here.
 """
 import numpy as np
 import pytest
@@ -31,13 +37,17 @@ KW = dict(segmentation_bands=[0, 3, 6], statistics_bands=list(range(8)),
           method="slic", n_segments=60, compactness=10)
 
 
-@pytest.fixture(scope="module")
-def runs():
+def _scene():
     base3 = build_scene(h=H, w=W, c=4).astype(np.float32)
     more = np.stack([np.roll(base3[..., i % 4], 17 * (i + 1), axis=i % 2)
                      for i in range(4)], axis=-1)
-    scene = np.concatenate([base3, more], axis=-1).astype(np.uint8)
-    image = jax_image(scene, Affine(1.0, 0, 0, 0, -1.0, H), crs="EPSG:32633")
+    return np.concatenate([base3, more], axis=-1).astype(np.uint8)
+
+
+@pytest.fixture(scope="module")
+def runs():
+    image = jax_image(_scene(), Affine(1.0, 0, 0, 0, -1.0, H),
+                      crs="EPSG:32633")
     return jax_segment(image, **KW), segment(image, device="cpu", **KW)
 
 
@@ -71,10 +81,18 @@ def test_schema_matches(runs):
                                     "dissimilarity", "homogeneity", "ASM",
                                     "energy", "correlation"])
 def test_feature_columns_match(runs, family):
+    from test_torch_stats import jax_moments64, shipped_gap
+
     js, ts = runs
+    moments64 = None
+    if family in ("mean", "variance", "skewness", "kurtosis"):
+        names, packed = jax_moments64(_scene(), ts.label_raster,
+                                      len(ts.table))
+        moments64 = packed[list(names).index(family)]
     for b in range(8):
         c = f"b{b}_{family}"
-        want = js.segments[c].to_numpy(np.float64)
+        shipped = js.segments[c].to_numpy(np.float64)
+        want = shipped if moments64 is None else moments64[:, b]
         got = ts.table[c]
         np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
         if family == "correlation":
@@ -83,6 +101,11 @@ def test_feature_columns_match(runs, family):
         else:
             np.testing.assert_allclose(got, want, rtol=2e-4, atol=1e-5,
                                        err_msg=c)
+        if moments64 is not None:
+            # the shipped float32 function misses the port by up to 1.1e-4
+            # past rtol 2e-4 (kurtosis of object 2, band 7)
+            np.testing.assert_array_equal(np.isnan(got), np.isnan(shipped))
+            assert shipped_gap(got, shipped, 2e-4, c) <= 2e-4, c
 
 
 def test_forest_proba_matches(runs):
