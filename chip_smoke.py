@@ -8,7 +8,7 @@ Phases, in order; any failure raises and exits non-zero:
 1. require a CUDA device and print its name and power limit (nvidia-smi);
 2. build the CUDA kernels from ``obia_tpu_torch/csrc`` with nvcc, one
    process per source, all started together, and the port's host library
-   (``obia_tpu_torch/native``: polygoniser, union-find) with g++;
+   (``obia_tpu_torch/native``: polygoniser, union-find, TreeSHAP) with g++;
 3. hold the GLCM sums kernel against its plain-torch twin (integer sums and
    sum (C+C^T)^2 equal, sum 1/(1+d^2) within rtol 1e-6, two runs of the
    kernel identical) on an edge-case scene, on a scene of many small
@@ -22,18 +22,30 @@ Phases, in order; any failure raises and exits non-zero:
    warm runs' spectral columns identical where their label rasters are;
    then a profiled run for the stage split, the kernel against its twin on
    one band of that scene, and both timed with CUDA events;
-5. cross-check: the same slice at 512^2 on the card and on the CPU (the
+5. classify the config-4 table with ``classify(method="mlp",
+   hidden_layer_sizes=(64,), max_iter=60, compute_shap=True,
+   sample_shap=True)``, once cold and once warm: the training table is the
+   seeded 20% subset of the objects with a median-split target, and Kernel
+   SHAP's synthetic rows go through the MLP on the card; checks: local
+   accuracy (base + sum(phi) == f(x) to 1e-6 against the card's own
+   predictions), the SHAP values of 4 rows with the same model on the CPU
+   (atol 1e-5), predicted classes among the training classes, probability
+   rows summing to 1, the classified GeoTIFF read back equal to the
+   label-raster render, and TreeSHAP (the g++ build of the native library)
+   on the stand-in forest with local accuracy to 1e-9 (the forest route of
+   ``classify`` needs sklearn to fit, and runs only where it is installed);
+6. cross-check: the same slice at 512^2 on the card and on the CPU (the
    plain path the CPU tests hold against the JAX reference): object counts
    within 1%, each feature column's mean within 1e-3 of the column's mean
    magnitude;
-6. hold the quickshift density and parent kernels against their twins on
+7. hold the quickshift density and parent kernels against their twins on
    edge-case scenes (ragged 70x300 C=3, 96x80 C=1, 64x64 C=8, a constant
    plateau) at radii 3, 15 and the density's largest, max_dist 0.6 r:
    density within rtol 1e-6, parent outputs exactly equal given the twin's
    rho, and the kernel pipeline's roots against the twin pipeline's
    (partition agreement >= 0.995); each kernel one past its own limit must
    raise (the density on r, the parent on its disk's radius rp);
-7. drive the config-2 slice of ``bench.py`` at 1024^2 RGB on the card:
+8. drive the config-2 slice of ``bench.py`` at 1024^2 RGB on the card:
    ``segment(method="quickshift", ratio=1.0, kernel_size=5, max_dist=10.0)``
    (spectral + GLCM features of the 3 bands) and a (64,) MLP fitted for
    max_iter=60, then ``predict_proba``, once cold (profiled) and once warm,
@@ -42,10 +54,10 @@ Phases, in order; any failure raises and exits non-zero:
    4096^2, and on the 8 bands of the config-4 scene at 1024^2 (the same
    radius and max_dist), and the GLCM sums kernel at this slice's object
    count, all timed with CUDA events;
-8. cross-check: the config-2 slice at 256^2 on the card and on the CPU:
+9. cross-check: the config-2 slice at 256^2 on the card and on the CPU:
    object counts within 1%, label partitions agreeing on >= 99.5% of the
-   pixels, column means as in phase 5;
-9. hold the seam-spanner histogram kernel (``glcm_spanner_hist``: every
+   pixels, column means as in phase 6;
+10. hold the seam-spanner histogram kernel (``glcm_spanner_hist``: every
    shard's pieces of every spanner in one launch, the tables summed over
    the shards and their sum (C + C^T)^2) against its twin on an edge-case
    scene sharded 2 x 4 on the card (spanners across the row seam, a column
@@ -57,7 +69,7 @@ Phases, in order; any failure raises and exits non-zero:
    the sums
    of a launch that stores no table (as the main path launches it) equal
    too, two runs identical;
-10. drive config 5 of ``bench.py`` at its real size (``OBIA_BENCH5_REAL=1``:
+11. drive config 5 of ``bench.py`` at its real size (``OBIA_BENCH5_REAL=1``:
    4096^2 RGB, n_segments=3000, compactness=10) through ``mosaic_pipeline``
    on a 2 x 4 mesh of shards on the one card, once cold and once warm, with
    the launch counts read around the warm run (``glcm_sums`` >= 24,
@@ -70,13 +82,13 @@ Phases, in order; any failure raises and exits non-zero:
    emptied (no walk), and the twin; the GLCM sums kernel on one band of
    that scene (one launch per shard) against its twin, timed with CUDA
    events;
-11. sharded against single-device on the card, on the same normalised
+12. sharded against single-device on the card, on the same normalised
    image: SLIC labels (convert2lab=False) as partitions agreeing on
    >= 99.5% of the pixels, and every feature column of the mosaic against
    single-device ``create_objects`` on the mosaic's labels (rtol 2e-4,
    atol 1e-5);
-12. cross-check: config 5 at 768^2 (``bench.py``'s default size for it) on
-   the card and on the CPU, as in phase 8.
+13. cross-check: config 5 at 768^2 (``bench.py``'s default size for it) on
+   the card and on the CPU, as in phase 9.
 
 After the build a line gives the quickshift kernels' registers, spilled
 bytes and pixels a thread (P) as the library reports them. The last two
@@ -100,7 +112,8 @@ the band in place can take. No one
 PyTorch call computes any of the four, so ``library_ms`` is null. The
 script needs no network, JAX, pandas or sklearn (with sklearn importable,
 the forest is fitted by it; without, a seeded numpy forest stands in; the
-MLP needs neither), and imports nothing of the JAX package.
+MLP and ``classify(method="mlp")`` need neither), and imports nothing of
+the JAX package.
 """
 from __future__ import annotations
 
@@ -176,10 +189,11 @@ def as_image(scene: np.ndarray):
                             crs="EPSG:32633")
 
 
-def numpy_forest(X: np.ndarray, n_trees: int, depth: int = 8, seed: int = 0):
+def forest_fields(X: np.ndarray, n_trees: int, depth: int = 8,
+                  seed: int = 0) -> dict:
     """A random full binary forest (heap-ordered nodes) with thresholds
-    drawn from the feature quantiles: the model when sklearn is absent."""
-    from obia_tpu_torch.classification.forest import ForestArrays
+    drawn from the feature quantiles, as numpy tables: the model when
+    sklearn is absent."""
     rng = np.random.default_rng(seed)
     n_int = 2 ** depth - 1
     n_nodes = 2 ** (depth + 1) - 1
@@ -194,8 +208,68 @@ def numpy_forest(X: np.ndarray, n_trees: int, depth: int = 8, seed: int = 0):
     right = np.where(idx < n_int, 2 * idx + 2, idx)[None].repeat(n_trees, 0)
     p = rng.uniform(0, 1, (n_trees, n_nodes, 1)).astype(np.float32)
     proba = np.concatenate([p, 1 - p], axis=2)
-    return ForestArrays.from_numpy(feature, threshold, left, right, proba,
-                                   np.array([0, 1]), depth, device="cuda")
+    return dict(feature=feature, threshold=threshold, left=left, right=right,
+                leaf_proba=proba, classes=np.array([0, 1]), max_depth=depth)
+
+
+def numpy_forest(X: np.ndarray, n_trees: int, depth: int = 8, seed: int = 0):
+    """:func:`forest_fields` as the port's forest tables on the card."""
+    from obia_tpu_torch.classification.forest import ForestArrays
+    return ForestArrays.from_numpy(**forest_fields(X, n_trees, depth, seed),
+                                   device="cuda")
+
+
+def sklearn_like_forest(fields: dict, seed: int = 1):
+    """The forest of :func:`forest_fields` with sklearn's fields
+    (``estimators_[i].tree_`` and ``classes_``), for TreeSHAP: -1 children
+    at the leaves, a random positive cover at each leaf and the sum of its
+    children's at each inner node, each leaf's value its class distribution
+    in float64 (summing to 1, as TreeSHAP normalises it) and each inner
+    node's the cover-weighted mean of its children's."""
+    import types
+    rng = np.random.default_rng(seed)
+    n_int = 2 ** fields["max_depth"] - 1
+    trees = []
+    for t in range(len(fields["feature"])):
+        n = fields["feature"].shape[1]
+        cover = np.zeros(n)
+        cover[n_int:] = rng.integers(1, 50, n - n_int)
+        value = fields["leaf_proba"][t].astype(np.float64)
+        value /= value.sum(axis=1, keepdims=True)  # as TreeSHAP reads it
+        for i in range(n_int - 1, -1, -1):  # children before parents
+            a, b = 2 * i + 1, 2 * i + 2
+            cover[i] = cover[a] + cover[b]
+            value[i] = (cover[a] * value[a] + cover[b] * value[b]) / cover[i]
+        leaf = np.arange(n) >= n_int
+        trees.append(types.SimpleNamespace(tree_=types.SimpleNamespace(
+            node_count=n, feature=fields["feature"][t],
+            threshold=fields["threshold"][t].astype(np.float64),
+            children_left=np.where(leaf, -1, fields["left"][t]),
+            children_right=np.where(leaf, -1, fields["right"][t]),
+            value=value[:, None, :], weighted_n_node_samples=cover,
+            max_depth=fields["max_depth"])))
+    return types.SimpleNamespace(estimators_=trees,
+                                 classes_=fields["classes"])
+
+
+def forest_walk(rf, X: np.ndarray):
+    """(rows, classes) mean leaf value over the trees and the trees' mean
+    expected value (root value), walked in float64 on the host."""
+    proba = np.zeros((len(X), len(rf.classes_)))
+    base = np.zeros(len(rf.classes_))
+    for est in rf.estimators_:
+        t = est.tree_
+        node = np.zeros(len(X), np.int64)
+        for _ in range(t.max_depth):
+            f = t.feature[node]
+            inner = f >= 0
+            go_left = X[np.arange(len(X)), np.maximum(f, 0)] <= \
+                t.threshold[node]
+            node = np.where(inner, np.where(go_left, t.children_left[node],
+                                            t.children_right[node]), node)
+        proba += t.value[node, 0, :]
+        base += t.value[0, 0, :]
+    return proba / len(rf.estimators_), base / len(rf.estimators_)
 
 
 def training_table(table, seed: int = 0):
@@ -242,6 +316,131 @@ def mlp_classify(table, device, seed: int = 0) -> np.ndarray:
         clf.fit(X[idx], y[idx])
     with telemetry.stage("classify.predict"):
         return clf.predict_proba(X)
+
+
+def classify_phase(table, device: str = "cuda") -> None:
+    """``classify`` on a config-4 table (the MLP route, Kernel SHAP evaluated
+    on ``device``), once cold and once warm, then its checks."""
+    import tempfile
+
+    import torch
+
+    from obia_tpu_torch import native, telemetry
+    from obia_tpu_torch.classification import forest as tforest
+    from obia_tpu_torch.classification.classify import classify
+    from obia_tpu_torch.classification.kernel_shap import kernel_shap
+    from obia_tpu_torch.io.tiff import TiffReader
+
+    _, y, idx = training_table(table)
+    training = table.take(idx).with_columns(feature_class=y[idx])
+    kw = dict(method="mlp", hidden_layer_sizes=(64,), max_iter=60,
+              random_state=0, compute_shap=True, sample_shap=True,
+              device=device)
+    for run in ("cold", "warm"):
+        tforest._FIT_CACHE.clear()  # each run fits
+        telemetry.reset()
+        telemetry.enable(True)
+        try:
+            t0 = time.perf_counter()
+            res = classify(table, training, **kw)
+            wall = time.perf_counter() - t0
+        finally:
+            telemetry.enable(False)
+        rep = telemetry.report()
+        st = {k: 1000 * rep[f"classify.{k}"]["last_s"]
+              for k in ("fit", "shap", "predict")}
+        log(f"classify {run} (mlp, (64,), max_iter=60, Kernel SHAP on the "
+            f"card): {wall:.3f} s; classify.fit {st['fit']:.1f} ms, "
+            f"classify.shap {st['shap']:.1f} ms, classify.predict "
+            f"{st['predict']:.1f} ms")
+    Xs, bg = res.shap_inputs
+    phi = res.shap_values
+    n, M = Xs.shape
+    B = len(bg)
+    S = min(2 * M + 2 ** 11, 2 ** min(M, 30) - 2)  # kernel_shap's default
+    rows = n * S * B
+    log(f"  Kernel SHAP: n={n} rows explained, M={M} features, S={S} "
+        f"coalitions, B={B} background rows: {rows} synthetic rows, "
+        f"{rows / (st['shap'] / 1000):.4g} rows/s")
+
+    # local accuracy against the card's own predictions
+    clf = res.classifier
+    dev_rows = torch.as_tensor(Xs, dtype=torch.float32, device=device)
+    f = clf.proba_tensor(dev_rows).double().cpu().numpy()
+    base = clf.proba_tensor(torch.as_tensor(
+        bg, dtype=torch.float32, device=device)).double().mean(0).cpu().numpy()
+    la = float(np.abs(base + phi.sum(axis=1) - f).max())
+    # the same fitted model on the CPU, 4 rows
+    phi_cpu = kernel_shap(clf.to("cpu").proba_tensor, torch.as_tensor(
+        Xs[:4], dtype=torch.float32), bg)
+    cc = float(np.abs(phi_cpu - phi[:4]).max())
+    log(f"  SHAP local accuracy max|base + sum(phi) - f(x)| = {la:.3e} "
+        f"(bar 1e-6); card vs CPU, 4 rows: max|diff| = {cc:.3e} (bar 1e-5)")
+    if not la <= 1e-6 or not cc <= 1e-5 or not np.isfinite(phi).all():
+        raise AssertionError(f"Kernel SHAP check failed: local accuracy "
+                             f"{la}, card vs CPU {cc}")
+    # where the card's time goes: 64 of the rows, the device's busy share,
+    # and the host's share in building the coalitions
+    from obia_tpu_torch.classification.kernel_shap import _build_coalitions
+    t0 = time.perf_counter()
+    _build_coalitions(M, S, np.random.default_rng(0))
+    coal = time.perf_counter() - t0
+
+    def some_rows():
+        return kernel_shap(clf.proba_tensor, dev_rows[:64], bg)
+
+    some_rows()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    some_rows()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    busy = sum(kernel_split(some_rows, "Kernel SHAP, 64 rows").values())
+    log(f"  Kernel SHAP, 64 rows: {1000 * wall:.1f} ms wall, of which "
+        f"{1000 * coal:.1f} ms building the coalitions on the host; device "
+        f"busy {busy / 1e3:.1f} ms ({busy / 1e4 / wall:.1f}% of the wall)")
+
+    pred = np.asarray(res.table["predicted_class"])
+    if len(pred) != len(table) or not set(np.unique(pred)) <= set(y[idx]):
+        raise AssertionError("predicted_class outside the training classes")
+    if (not np.isfinite(res.proba).all()
+            or not np.allclose(res.proba.sum(1), 1.0, atol=1e-5)):
+        raise AssertionError("classify probabilities do not sum to 1")
+
+    # the classified GeoTIFF against the label-raster render
+    lab = np.asarray(table.layer.label_raster)
+    code = {c: i + 1 for i, c in enumerate(dict.fromkeys(pred.tolist()))}
+    lut = np.zeros(int(lab.max()) + 2, np.int32)
+    lut[np.asarray(res.table["segment_id"])] = [code[c] for c in pred]
+    want = np.where(lab >= 0, lut[lab + 1], 0)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "classified.tif")
+        t0 = time.perf_counter()
+        res.write_geotiff(path)
+        got = TiffReader(path).read()[:, :, 0]
+        tif_s = time.perf_counter() - t0
+    if not np.array_equal(got, want):
+        raise AssertionError("classified GeoTIFF != the label-raster render")
+    log(f"  GeoTIFF {got.shape[0]}x{got.shape[1]} written and read back in "
+        f"{tif_s:.2f} s, equal to the render ({len(code)} classes)")
+
+    # TreeSHAP (the g++ build of the native library) on the stand-in forest
+    X, _, _ = training_table(table)
+    rf = sklearn_like_forest(forest_fields(X[idx], N_TREES))
+    t0 = time.perf_counter()
+    tphi = native.tree_shap_forest(rf, X[:32])
+    tree_s = time.perf_counter() - t0
+    fx, tbase = forest_walk(rf, X[:32])
+    tla = float(np.abs(tbase + tphi.sum(axis=1) - fx).max())
+    log(f"  TreeSHAP, {N_TREES}-tree depth-8 stand-in forest, 32 rows: "
+        f"{tree_s:.2f} s, local accuracy max|diff| = {tla:.3e} (bar 1e-9)")
+    if not tla <= 1e-9:
+        raise AssertionError(f"TreeSHAP local accuracy {tla}")
+    try:
+        import sklearn  # noqa: F401
+    except ImportError:
+        log("  classify(method='rf') not run: sklearn, which fits the "
+            "forest, is not installed; config 4 keeps the stand-in forest")
 
 
 def run_slice(image, device):
@@ -1014,11 +1213,14 @@ def main() -> None:
     kernel_split(lambda: glcm_kernel.glcm_sums(*args), "GLCM sums kernels")
     glcm_kernel.launches = before
 
-    # -- 5. cross-check against the CPU plain path ------------------------
+    # -- 5. classify() on the config-4 table ------------------------------
+    classify_phase(s.table)
+
+    # -- 6. cross-check against the CPU plain path ------------------------
     cross_check(run_slice, config4_scene(CROSS_SIZE), f"config 4 "
                 f"{CROSS_SIZE}^2")
 
-    # -- 6. quickshift kernels vs twins, edge cases -----------------------
+    # -- 7. quickshift kernels vs twins, edge cases -----------------------
     qs_err = [0.0, 0.0]
     for name, scene in qs_scenes().items():
         x = torch.as_tensor(scene, device="cuda")
@@ -1044,7 +1246,7 @@ def main() -> None:
                 raise AssertionError(f"{what} past the kernel's limit did "
                                      f"not raise ({name})")
 
-    # -- 7. the config-2 slice at its own size ----------------------------
+    # -- 8. the config-2 slice at its own size ----------------------------
     image2 = as_image(build_scene(h=QS_SIZE, w=QS_SIZE))
     mp2 = QS_SIZE * QS_SIZE / 1e6
     s2_cold, _, cold2 = profiled(run_config2, image2, "cold run")
@@ -1097,11 +1299,11 @@ def main() -> None:
     kernel_split(lambda: glcm_kernel.glcm_sums(*args2), "GLCM sums kernels")
     glcm_kernel.launches = before
 
-    # -- 8. config-2 cross-check against the CPU plain path ---------------
+    # -- 9. config-2 cross-check against the CPU plain path ---------------
     cross_check(run_config2, build_scene(h=QS_CROSS_SIZE, w=QS_CROSS_SIZE),
                 f"config 2 {QS_CROSS_SIZE}^2")
 
-    # -- 9. the seam-spanner histogram kernel vs its twin, edge cases ------
+    # -- 10. the seam-spanner histogram kernel vs its twin, edge cases ------
     from obia_tpu_torch.parallel import mesh as pmesh
     cmesh = pmesh.make_mesh(C5_SHARDS, ["cuda"])
     himg, hlab, hK = seam_scene()
@@ -1119,7 +1321,7 @@ def main() -> None:
             pmesh.shard_raster(cmesh, dlab, fill=-1)[0], dK, levels, 0)[1],
             f"dense scene (cell lists overflow), L={levels}"))
 
-    # -- 10. config 5 at its real size on a 2 x 4 mesh on the card ---------
+    # -- 11. config 5 at its real size on a 2 x 4 mesh on the card ---------
     from obia_tpu_torch.parallel.sharded import count_shard_spanning
     image5 = as_image(build_scene(h=C5_SIZE, w=C5_SIZE))
     mp5 = C5_SIZE * C5_SIZE / 1e6
@@ -1177,11 +1379,11 @@ def main() -> None:
                  "GLCM sums kernels, 8 launches")
     glcm_kernel.launches = before
 
-    # -- 11. sharded vs single-device on the card --------------------------
+    # -- 12. sharded vs single-device on the card --------------------------
     sharded_vs_single(r5, image5)
     del r5, r5_cold, hist5_args, sums5_calls, img5_sh
 
-    # -- 12. config-5 cross-check against the CPU plain path --------------
+    # -- 13. config-5 cross-check against the CPU plain path --------------
     cross_check(run_config5, build_scene(h=C5_CROSS_SIZE, w=C5_CROSS_SIZE),
                 f"config 5 {C5_CROSS_SIZE}^2")
 

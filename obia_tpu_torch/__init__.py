@@ -8,14 +8,17 @@ unless given ``device="cpu"`` (:mod:`obia_tpu_torch.device`), and functions
 that take tensors follow their tensors. Every Pallas kernel on the ported
 path is a CUDA kernel under ``csrc/``, built with nvcc at first use
 (:mod:`obia_tpu_torch._build`). The host layer is the port's own:
-``geometry`` (affine, CRS, polygons), ``io`` (the GeoTIFF reader, the
-GeoPackage writer), ``vector`` (the pandas ``GeoDataFrame``) and ``native``
-(the C++ polygoniser and union-find, built with g++ at first use).
+``geometry`` (affine, CRS, polygons, points), ``io`` (the GeoTIFF reader
+and writer, the GeoPackage writer), ``vector`` (the pandas ``GeoDataFrame``
+and ``sjoin``) and ``native`` (the C++ polygoniser, union-find and TreeSHAP,
+built with g++ at first use).
 
     from obia_tpu_torch.handlers.geotif import open_geotiff, image_from_array
     from obia_tpu_torch.segmentation.segment import segment, Segments
     from obia_tpu_torch.classification.forest import TorchForestClassifier
     from obia_tpu_torch.classification.mlp import TorchMLPClassifier
+    from obia_tpu_torch.classification.classify import classify
+    from obia_tpu_torch.utils.utils import label_segments
 
 Importing the package switches TF32 off for float32 matmuls and cuDNN
 convolutions (``torch.backends.cuda.matmul.allow_tf32`` and
@@ -30,7 +33,8 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
 __all__ = ["__version__", "open_geotiff", "image_from_array", "segment",
-           "TorchForestClassifier", "TorchMLPClassifier"]
+           "TorchForestClassifier", "TorchMLPClassifier", "classify",
+           "label_segments"]
 
 
 def __getattr__(name):
@@ -47,4 +51,10 @@ def __getattr__(name):
     if name == "TorchMLPClassifier":
         from .classification.mlp import TorchMLPClassifier
         return TorchMLPClassifier
+    if name == "classify":
+        from .classification.classify import classify
+        return classify
+    if name == "label_segments":
+        from .utils.utils import label_segments
+        return label_segments
     raise AttributeError(f"module 'obia_tpu_torch' has no attribute {name!r}")

@@ -129,7 +129,9 @@ def _fit_cache_key(params: dict, X: np.ndarray, y: np.ndarray):
 class TorchForestClassifier:
     """sklearn-compatible facade: host ``fit`` (sklearn, memoised for
     seeded refits of the same table), ``predict_proba``/``predict`` on
-    ``device`` (the card when None; ``"cpu"`` asks for the CPU)."""
+    ``device`` (the card when None; ``"cpu"`` asks for the CPU). The
+    constructor imports sklearn, so it raises ``ImportError`` where sklearn
+    is not installed."""
 
     def __init__(self, device=None, **kwargs):
         from sklearn.ensemble import RandomForestClassifier
@@ -162,6 +164,15 @@ class TorchForestClassifier:
     @property
     def classes_(self):
         return self._skl.classes_
+
+    @property
+    def sklearn_model(self):
+        """The fitted ``RandomForestClassifier`` (TreeSHAP reads its
+        trees)."""
+        return self._skl
+
+    def get_params(self) -> dict:
+        return self._skl.get_params()
 
     def predict_proba(self, X) -> np.ndarray:
         if self._arrays is None:

@@ -169,20 +169,30 @@ class TorchMLPClassifier:
         model.eval()
         self._model = model
 
-    def _logits(self, X) -> np.ndarray:
+    def to(self, device) -> "TorchMLPClassifier":
+        """A copy of this fitted classifier with its model on ``device``."""
+        import copy
+        clf = copy.copy(self)
+        clf.device = torch.device(device)
+        clf._model = copy.deepcopy(self._model).to(clf.device)
+        return clf
+
+    def proba_tensor(self, x: torch.Tensor) -> torch.Tensor:
+        """Class probabilities of the rows of ``x`` on the model's device:
+        the logits, then a float32 softmax in the reference's max-subtract
+        form. ``predict_proba`` and Kernel SHAP both call this."""
         if self._model is None:
             raise RuntimeError("This TorchMLPClassifier instance is not "
                                "fitted yet. Call 'fit' first.")
         with torch.no_grad():
-            x = torch.as_tensor(np.asarray(X, np.float32),
-                                device=self.device)
-            return self._model(x).cpu().numpy()
+            logits = self._model(x.to(self.device, torch.float32))
+            z = logits - logits.amax(dim=1, keepdim=True)
+            e = torch.exp(z)
+            return e / e.sum(dim=1, keepdim=True)
 
     def predict_proba(self, X) -> np.ndarray:
-        logits = self._logits(X)  # softmax on the host, as the reference
-        z = logits - logits.max(axis=1, keepdims=True)
-        e = np.exp(z)
-        return e / e.sum(axis=1, keepdims=True)
+        return self.proba_tensor(torch.as_tensor(
+            np.asarray(X, np.float32))).cpu().numpy()
 
     def predict(self, X) -> np.ndarray:
         return self.classes_[np.argmax(self.predict_proba(X), axis=1)]

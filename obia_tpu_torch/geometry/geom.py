@@ -4,7 +4,9 @@
 The polygoniser builds a :class:`Polygon` per ring group (holes assigned by
 point-in-polygon) or a :class:`MultiPolygon` for a region pinched at a
 corner; the GeoPackage writer reads ``bounds``, ``is_empty`` and
-``geom_type``, and callers read ``area``. Coordinates are float64 numpy
+``geom_type``, and callers read ``area`` and ``centroid``. Labelled points
+(:class:`Point`) and ``intersects`` serve ``label_segments`` and the
+acceptable-classes mask of ``classify``. Coordinates are float64 numpy
 arrays.
 """
 from __future__ import annotations
@@ -15,7 +17,7 @@ import numpy as np
 
 
 class Geometry:
-    """Base class. Subclasses: Polygon, MultiPolygon."""
+    """Base class. Subclasses: Point, Polygon, MultiPolygon."""
 
     geom_type = "Geometry"
 
@@ -27,9 +29,27 @@ class Geometry:
     def is_empty(self) -> bool:
         return False
 
+    def intersects(self, other: "Geometry") -> bool:
+        if not _bbox_overlap(self.bounds, other.bounds):
+            return False
+        return _intersects(self, other)
+
     def __repr__(self):
         b = self.bounds
         return f"<{self.geom_type} bounds=({b[0]:.3f}, {b[1]:.3f}, {b[2]:.3f}, {b[3]:.3f})>"
+
+
+class Point(Geometry):
+    geom_type = "Point"
+    __slots__ = ("x", "y")
+
+    def __init__(self, x: float, y: float):
+        self.x = float(x)
+        self.y = float(y)
+
+    @property
+    def bounds(self):
+        return (self.x, self.y, self.x, self.y)
 
 
 class _Ring:
@@ -92,6 +112,34 @@ class Polygon(Geometry):
             a -= abs(h.signed_area())
         return a
 
+    @property
+    def centroid(self) -> Point:
+        # area-weighted centroid of shell minus holes
+        def ring_cx_cy_a(ring: _Ring):
+            c = ring.coords_array
+            if len(c) < 4:
+                return 0.0, 0.0, 0.0
+            x, y = c[:-1, 0], c[:-1, 1]
+            x2, y2 = c[1:, 0], c[1:, 1]
+            cross = x * y2 - x2 * y
+            a = cross.sum() / 2.0
+            if a == 0:
+                return float(x.mean()), float(y.mean()), 0.0
+            cx = float(((x + x2) * cross).sum() / (6 * a))
+            cy = float(((y + y2) * cross).sum() / (6 * a))
+            return cx, cy, a
+        cx, cy, a = ring_cx_cy_a(self._shell)
+        num_x, num_y, denom = cx * abs(a), cy * abs(a), abs(a)
+        for h in self._holes:
+            hx, hy, ha = ring_cx_cy_a(h)
+            num_x -= hx * abs(ha)
+            num_y -= hy * abs(ha)
+            denom -= abs(ha)
+        if denom == 0:
+            c = self._shell.coords_array
+            return Point(float(c[:, 0].mean()), float(c[:, 1].mean()))
+        return Point(num_x / denom, num_y / denom)
+
     def contains_points(self, xs: np.ndarray, ys: np.ndarray) -> np.ndarray:
         """Vectorised point-in-polygon (crossing number, boundary counts in)."""
         inside = _points_in_ring(self._shell.coords_array, xs, ys)
@@ -123,11 +171,23 @@ class MultiPolygon(Geometry):
     def area(self) -> float:
         return sum(g.area for g in self.geoms)
 
+    @property
+    def centroid(self) -> Point:
+        areas = np.array([max(g.area, 1e-300) for g in self.geoms])
+        cs = np.array([[g.centroid.x, g.centroid.y] for g in self.geoms])
+        w = areas / areas.sum()
+        return Point(float((cs[:, 0] * w).sum()), float((cs[:, 1] * w).sum()))
+
     def contains_points(self, xs, ys) -> np.ndarray:
         out = np.zeros(np.shape(xs), dtype=bool)
         for g in self.geoms:
             out |= g.contains_points(xs, ys)
         return out
+
+
+def box(minx: float, miny: float, maxx: float, maxy: float) -> Polygon:
+    return Polygon([(minx, miny), (maxx, miny), (maxx, maxy), (minx, maxy),
+                    (minx, miny)])
 
 
 def affine_transform_coords(coords: np.ndarray,
@@ -140,7 +200,11 @@ def affine_transform_coords(coords: np.ndarray,
     return np.stack([a * x + b * y + xoff, d * x + e * y + yoff], axis=1)
 
 
-# --- point in polygon -----------------------------------------------------------
+# --- predicates -----------------------------------------------------------------
+
+def _bbox_overlap(b1, b2) -> bool:
+    return not (b1[2] < b2[0] or b2[2] < b1[0] or b1[3] < b2[1] or b2[3] < b1[1])
+
 
 def _points_in_ring(ring: np.ndarray, xs, ys, strict: bool = False) -> np.ndarray:
     """Crossing-number test; points exactly on an edge count as inside
@@ -185,3 +249,80 @@ def _points_on_ring_edges(ring: np.ndarray, xs, ys, tol: float = 1e-9) -> np.nda
             near = (np.abs(cross) < tol * np.sqrt(seg_len2)) & (t >= -tol) & (t <= 1 + tol)
         out |= near
     return out
+
+
+def _segments_intersect(p1, p2, p3, p4) -> bool:
+    def orient(a, b, c):
+        v = (b[0] - a[0]) * (c[1] - a[1]) - (b[1] - a[1]) * (c[0] - a[0])
+        return 0 if abs(v) < 1e-12 else (1 if v > 0 else -1)
+    o1, o2 = orient(p1, p2, p3), orient(p1, p2, p4)
+    o3, o4 = orient(p3, p4, p1), orient(p3, p4, p2)
+    if o1 != o2 and o3 != o4:
+        return True
+
+    def on_seg(a, b, c):
+        return (min(a[0], b[0]) - 1e-12 <= c[0] <= max(a[0], b[0]) + 1e-12 and
+                min(a[1], b[1]) - 1e-12 <= c[1] <= max(a[1], b[1]) + 1e-12)
+    if o1 == 0 and on_seg(p1, p2, p3):
+        return True
+    if o2 == 0 and on_seg(p1, p2, p4):
+        return True
+    if o3 == 0 and on_seg(p3, p4, p1):
+        return True
+    if o4 == 0 and on_seg(p3, p4, p2):
+        return True
+    return False
+
+
+def _rings_of(geom: Geometry) -> List[np.ndarray]:
+    """The polygon rings of ``geom`` with at least 2 points (empty
+    geometries have no boundary)."""
+    if isinstance(geom, Polygon):
+        rings = [geom.exterior.coords_array] + [h.coords_array
+                                                for h in geom.interiors]
+    elif isinstance(geom, MultiPolygon):
+        rings = [r for g in geom.geoms for r in _rings_of(g)]
+    else:
+        rings = []
+    return [r for r in rings if len(r) >= 2]
+
+
+def _boundary_intersects(g1: Geometry, g2: Geometry) -> bool:
+    for r1 in _rings_of(g1):
+        for r2 in _rings_of(g2):
+            # bbox prune per ring
+            if not _bbox_overlap((r1[:, 0].min(), r1[:, 1].min(), r1[:, 0].max(), r1[:, 1].max()),
+                                 (r2[:, 0].min(), r2[:, 1].min(), r2[:, 0].max(), r2[:, 1].max())):
+                continue
+            for i in range(len(r1) - 1):
+                for j in range(len(r2) - 1):
+                    if _segments_intersect(r1[i], r1[i + 1], r2[j], r2[j + 1]):
+                        return True
+    return False
+
+
+def _first_vertex(g: Geometry):
+    rings = _rings_of(g)
+    if not rings or len(rings[0]) == 0:
+        return None
+    return rings[0][0]
+
+
+def _intersects(g1: Geometry, g2: Geometry) -> bool:
+    if isinstance(g1, Point):
+        if isinstance(g2, Point):
+            return abs(g1.x - g2.x) < 1e-12 and abs(g1.y - g2.y) < 1e-12
+        g1, g2 = g2, g1
+    polygonal = (Polygon, MultiPolygon)
+    if isinstance(g2, Point) and isinstance(g1, polygonal):
+        return bool(g1.contains_points(np.array(g2.x), np.array(g2.y)))
+    if isinstance(g1, polygonal) and isinstance(g2, polygonal):
+        # vertex containment either way, else boundary crossing
+        v2 = _first_vertex(g2)
+        if v2 is not None and g1.contains_points(np.array(v2[0]), np.array(v2[1])):
+            return True
+        v1 = _first_vertex(g1)
+        if v1 is not None and g2.contains_points(np.array(v1[0]), np.array(v1[1])):
+            return True
+        return _boundary_intersects(g1, g2)
+    raise TypeError(f"intersects not implemented for {type(g1)}/{type(g2)}")

@@ -1,5 +1,6 @@
-"""GeoTIFF reader (the port's copy of the reader of ``obia_tpu/io/tiff.py``;
-no GDAL / rasterio / libtiff).
+"""GeoTIFF reader and writer (the port's copy of ``obia_tpu/io/tiff.py``;
+no GDAL / rasterio / libtiff). ``write_tiff`` writes the classified raster
+of ``ClassifiedImage.write_geotiff``.
 
 Reads the subset of TIFF 6.0 + the GeoTIFF extension that geospatial
 rasters use in practice:
@@ -452,3 +453,291 @@ class TiffReader:
                     chunk = self._decode_chunk(b * strips_per_band + s, rows, W, 1)
                     out[r0:r0 + rows, :, b] = chunk[:, :, 0]
         return out
+
+
+# --- Writer ------------------------------------------------------------------
+
+def lzw_encode(data: bytes) -> bytes:
+    """TIFF LZW encoder (early code change)."""
+    out = bytearray()
+    bitbuf = 0
+    bitcnt = 0
+    width = 9
+    CLEAR, EOI = 256, 257
+
+    def emit(code: int):
+        nonlocal bitbuf, bitcnt
+        bitbuf = (bitbuf << width) | code
+        bitcnt += width
+        while bitcnt >= 8:
+            out.append((bitbuf >> (bitcnt - 8)) & 0xFF)
+            bitcnt -= 8
+
+    table: Dict[bytes, int] = {bytes([i]): i for i in range(256)}
+    next_code = 258
+    emit(CLEAR)
+    w = b""
+    for byte in data:
+        c = bytes([byte])
+        wc = w + c
+        if wc in table:
+            w = wc
+        else:
+            emit(table[w])
+            table[wc] = next_code
+            next_code += 1
+            # early change, ENCODER side: bump once the next free code no
+            # longer fits the current width (2^w); at 12 bits emit CLEAR
+            # instead. Verified against libtiff/PIL (the previous
+            # 2^w - 1 rule produced "code not yet in table" in libtiff).
+            if next_code == (1 << width):
+                if width < 12:
+                    width += 1
+                else:
+                    emit(CLEAR)
+                    table = {bytes([i]): i for i in range(256)}
+                    next_code = 258
+                    width = 9
+            w = c
+    if w:
+        emit(table[w])
+    emit(EOI)
+    if bitcnt:
+        out.append((bitbuf << (8 - bitcnt)) & 0xFF)
+    return bytes(out)
+
+
+def _apply_predictor(arr: np.ndarray, predictor: int) -> np.ndarray:
+    if predictor == 2:
+        out = arr.copy()
+        out[:, 1:, :] = arr[:, 1:, :] - arr[:, :-1, :]
+        return out
+    return arr
+
+
+_SAMPLE_FORMAT_OF_KIND = {"u": 1, "i": 2, "f": 3}
+
+
+def write_tiff(path: str,
+               array: np.ndarray,
+               transform: Optional[Affine] = None,
+               crs=None,
+               nodata: Optional[float] = None,
+               compression: str = "deflate",
+               tiled: bool = False,
+               tile_size: int = 256,
+               bigtiff: Optional[bool] = None) -> None:
+    """Write an (H, W) or (H, W, C) array as a little-endian GeoTIFF.
+    ``bigtiff=None`` auto-selects BigTIFF when the raster exceeds classic
+    TIFF's 4 GB offset range."""
+    if array.ndim == 2:
+        array = array[:, :, None]
+    if array.ndim != 3:
+        raise ValueError("array must be (H, W) or (H, W, C)")
+    arr = np.ascontiguousarray(array)
+    if arr.dtype.byteorder == ">":
+        arr = arr.astype(arr.dtype.newbyteorder("<"))
+    H, W, C = arr.shape
+    kind = arr.dtype.kind
+    if kind not in _SAMPLE_FORMAT_OF_KIND:
+        raise ValueError(f"unsupported dtype {arr.dtype}")
+    bits = arr.dtype.itemsize * 8
+    comp_code = {"none": 1, "deflate": 8, "lzw": 5, "packbits": 32773}[compression]
+    # the Predictor tag is only defined for LZW/Deflate; libtiff and GDAL
+    # ignore it on PackBits, so differenced PackBits data would be read
+    # back raw (silently wrong) by every standard reader
+    predictor = 2 if (compression in ("lzw", "deflate") and kind in "ui") else 1
+
+    # -- encode chunks
+    chunks: List[bytes] = []
+    if tiled:
+        ts = tile_size
+        tiles_x = (W + ts - 1) // ts
+        tiles_y = (H + ts - 1) // ts
+        for ty in range(tiles_y):
+            for tx in range(tiles_x):
+                tile = np.zeros((ts, ts, C), arr.dtype)
+                r0, c0 = ty * ts, tx * ts
+                sub = arr[r0:r0 + ts, c0:c0 + ts]
+                tile[:sub.shape[0], :sub.shape[1]] = sub
+                chunks.append(_encode_chunk(tile, comp_code, predictor))
+    else:
+        rows_per_strip = max(1, min(H, (1 << 20) // max(1, W * C * arr.dtype.itemsize)))
+        for r0 in range(0, H, rows_per_strip):
+            strip = arr[r0:r0 + rows_per_strip]
+            chunks.append(_encode_chunk(strip, comp_code, predictor))
+
+    # -- tags
+    tags: List[Tuple[int, int, int, object]] = []  # (tag, type, count, values)
+    tags.append((T_WIDTH, 4, 1, [W]))
+    tags.append((T_LENGTH, 4, 1, [H]))
+    tags.append((T_BITS, 3, C, [bits] * C))
+    tags.append((T_COMPRESSION, 3, 1, [comp_code]))
+    # tag 3-band uint8 as RGB so standard viewers render it in colour;
+    # everything else is BlackIsZero with unspecified extra samples
+    rgb = C == 3 and arr.dtype == np.uint8
+    tags.append((T_PHOTOMETRIC, 3, 1, [2 if rgb else 1]))
+    tags.append((T_SPP, 3, 1, [C]))
+    if C > 1 and not rgb:
+        tags.append((T_EXTRA, 3, C - 1, [0] * (C - 1)))  # unspecified extras
+    tags.append((T_PLANAR, 3, 1, [1]))
+    if predictor != 1:
+        tags.append((T_PREDICTOR, 3, 1, [predictor]))
+    tags.append((T_SAMPLE_FORMAT, 3, C, [_SAMPLE_FORMAT_OF_KIND[kind]] * C))
+    if tiled:
+        tags.append((T_TILE_W, 3, 1, [tile_size]))
+        tags.append((T_TILE_L, 3, 1, [tile_size]))
+        off_tag, cnt_tag = T_TILE_OFFSETS, T_TILE_COUNTS
+    else:
+        tags.append((T_ROWS_PER_STRIP, 4, 1, [rows_per_strip]))
+        off_tag, cnt_tag = T_STRIP_OFFSETS, T_STRIP_COUNTS
+
+    if transform is not None:
+        t = transform
+        if t.b == 0 and t.d == 0:
+            tags.append((T_PIXEL_SCALE, 12, 3, [t.a, -t.e, 0.0]))
+            tags.append((T_TIEPOINT, 12, 6, [0.0, 0.0, 0.0, t.c, t.f, 0.0]))
+        else:
+            mt = [t.a, t.b, 0, t.c, t.d, t.e, 0, t.f, 0, 0, 0, 0, 0, 0, 0, 1]
+            tags.append((T_TRANSFORM, 12, 16, [float(v) for v in mt]))
+
+    crs_obj = CRS.from_user_input(crs) if crs is not None else None
+    if crs_obj is not None and crs_obj.to_epsg():
+        epsg = crs_obj.to_epsg()
+        is_geographic = crs_obj.is_geographic
+        model = 2 if is_geographic else 1
+        keys = [(GEOKEY_MODEL_TYPE, 0, 1, model),
+                (GEOKEY_RASTER_TYPE, 0, 1, 1)]
+        if is_geographic:
+            keys.append((GEOKEY_GEOGRAPHIC_TYPE, 0, 1, epsg))
+        else:
+            keys.append((GEOKEY_PROJECTED_TYPE, 0, 1, epsg))
+        kd = [1, 1, 0, len(keys)]
+        for k in keys:
+            kd.extend(k)
+        tags.append((T_GEO_KEYS, 3, len(kd), kd))
+
+    if nodata is not None:
+        s = (f"{nodata}").encode() + b"\0"
+        tags.append((T_GDAL_NODATA, 2, len(s), s))
+
+    # -- layout: header + IFD + external tag data + chunk data
+    total_chunk_bytes = sum(len(c) + (len(c) & 1) for c in chunks)
+    if bigtiff is None:
+        bigtiff = total_chunk_bytes > (1 << 32) - (1 << 24)
+    n_entries = len(tags) + 2  # + offsets/counts tags
+    if bigtiff:
+        header_size = 16
+        entry_size = 20
+        inline = 8
+        ifd_size = 8 + entry_size * n_entries + 8
+        off_type = 16  # LONG8
+        off_fmt = "Q"
+    else:
+        header_size = 8
+        entry_size = 12
+        inline = 4
+        ifd_size = 2 + entry_size * n_entries + 4
+        off_type = 4
+        off_fmt = "I"
+    ifd_offset = header_size
+    data_cursor = ifd_offset + ifd_size
+
+    def pack_values(typ: int, values) -> bytes:
+        if typ == 2:
+            return bytes(values)
+        fmt = TYPE_FMT[typ]
+        return struct.pack("<" + str(len(values)) + fmt, *values)
+
+    ext_blobs: List[bytes] = []
+
+    all_tags = tags + [
+        (off_tag, off_type, len(chunks), None),   # placeholder
+        (cnt_tag, off_type, len(chunks), [len(c) for c in chunks]),
+    ]
+    all_tags.sort(key=lambda t: t[0])
+
+    # first pass: compute external space (placeholder offsets occupy same size)
+    ext_size = 0
+    for tag, typ, cnt, values in all_tags:
+        size = TYPE_SIZES[typ] * cnt
+        if size > inline:
+            ext_size += size + (size & 1)
+    chunk_data_start = data_cursor + ext_size
+    chunk_offsets = []
+    cur = chunk_data_start
+    for c in chunks:
+        chunk_offsets.append(cur)
+        cur += len(c) + (len(c) & 1)
+
+    ext_cursor = data_cursor
+    out = bytearray()
+    if bigtiff:
+        out += struct.pack("<2sHHHQ", b"II", 43, 8, 0, ifd_offset)
+        out += struct.pack("<Q", n_entries)
+    else:
+        out += struct.pack("<2sHI", b"II", 42, ifd_offset)
+        out += struct.pack("<H", n_entries)
+    for tag, typ, cnt, values in all_tags:
+        if values is None:
+            values = chunk_offsets
+        blob = pack_values(typ, values)
+        size = len(blob)
+        if bigtiff:
+            out += struct.pack("<HHQ", tag, typ, cnt)
+        else:
+            out += struct.pack("<HHI", tag, typ, cnt)
+        if size <= inline:
+            out += blob.ljust(inline, b"\0")
+        else:
+            out += struct.pack("<" + off_fmt, ext_cursor)
+            ext_blobs.append(blob if size % 2 == 0 else blob + b"\0")
+            ext_cursor += size + (size & 1)
+    out += struct.pack("<" + off_fmt, 0)  # next IFD
+    for blob in ext_blobs:
+        out += blob
+    with open(path, "wb") as f:
+        f.write(bytes(out))
+        for c in chunks:
+            f.write(c)
+            if len(c) & 1:
+                f.write(b"\0")
+
+
+def _encode_chunk(chunk: np.ndarray, comp_code: int, predictor: int) -> bytes:
+    if predictor == 2:
+        chunk = _apply_predictor(chunk, 2)
+    raw = np.ascontiguousarray(chunk).tobytes()
+    if comp_code == 1:
+        return raw
+    if comp_code == 8:
+        return zlib.compress(raw, 6)
+    if comp_code == 5:
+        return lzw_encode(raw)
+    if comp_code == 32773:
+        return _packbits_encode(raw)
+    raise ValueError(f"unsupported compression code {comp_code}")
+
+
+def _packbits_encode(data: bytes) -> bytes:
+    out = bytearray()
+    i, n = 0, len(data)
+    while i < n:
+        # find run
+        run = 1
+        while i + run < n and run < 128 and data[i + run] == data[i]:
+            run += 1
+        if run >= 2:
+            out += bytes([257 - run, data[i]])
+            i += run
+        else:
+            # literal run
+            start = i
+            i += 1
+            while i < n and i - start < 128:
+                if i + 1 < n and data[i] == data[i + 1]:
+                    break
+                i += 1
+            lit = data[start:i]
+            out += bytes([len(lit) - 1]) + lit
+    return bytes(out)

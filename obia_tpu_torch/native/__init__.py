@@ -1,9 +1,10 @@
 """The port's host-side native library, bound with ctypes.
 
 ``obia_native.cpp`` (beside this file) holds the sparse union-find that the
-sharded CCL resolves its seams with and the polygoniser that traces every
-object from the row-wise runs of the label raster. At first use it is built
-with ::
+sharded CCL resolves its seams with, the polygoniser that traces every
+object from the row-wise runs of the label raster, and the path-dependent
+TreeSHAP that ``classify(method="rf", compute_shap=True)`` explains the
+forest with. At first use it is built with ::
 
     g++ -O3 -std=c++17 -shared -fPIC -o build/native/libobia_native_<hash>.so
 
@@ -84,6 +85,10 @@ def load() -> ctypes.CDLL:
             lib.polygonize_export.restype = None
             lib.polygonize_free.argtypes = [ctypes.c_void_p]
             lib.polygonize_free.restype = None
+            lib.tree_shap.argtypes = [p32, pd, p32, p32, pd, pd, i64,
+                                      ctypes.c_int32, ctypes.c_int32, pd,
+                                      i64, pd, ctypes.c_int32]
+            lib.tree_shap.restype = None
             _lib = lib
         return _lib
 
@@ -138,3 +143,42 @@ def polygonize_rings_rle_packed(values: np.ndarray, lengths: np.ndarray,
         return labels, n_pts, areas, coords
     finally:
         lib.polygonize_free(h)
+
+
+def tree_shap_forest(rf, X: np.ndarray) -> np.ndarray:
+    """Path-dependent TreeSHAP for a fitted forest with sklearn's fields
+    (``estimators_[i].tree_`` and ``classes_``). Returns (n_samples,
+    n_features, n_classes) float64 attributions to the class probabilities,
+    averaged over the trees. A failed build of the library raises."""
+    lib = load()
+    X = np.ascontiguousarray(X, np.float64)
+    n_samples, n_features = X.shape
+    n_classes = len(rf.classes_)
+    phi_total = np.zeros((n_samples, n_features + 1, n_classes), np.float64)
+    phi = np.empty_like(phi_total)
+    pd = ctypes.POINTER(ctypes.c_double)
+    for est in rf.estimators_:
+        t = est.tree_
+        n = t.node_count
+        feature = np.ascontiguousarray(t.feature, np.int32)
+        # sklearn's thresholds are float64 midpoints of adjacent float32
+        # feature values: a float32 copy can flip x <= threshold on a
+        # boundary sample and attribute the wrong leaf
+        threshold = np.ascontiguousarray(t.threshold, np.float64)
+        idx = np.arange(n, dtype=np.int32)
+        left = np.where(t.children_left < 0, idx,
+                        t.children_left).astype(np.int32)
+        right = np.where(t.children_right < 0, idx,
+                         t.children_right).astype(np.int32)
+        v = t.value[:, 0, :].astype(np.float64)
+        v = np.ascontiguousarray(v / np.maximum(v.sum(axis=1, keepdims=True),
+                                                1e-12))
+        cover = np.ascontiguousarray(t.weighted_n_node_samples, np.float64)
+        phi.fill(0.0)
+        lib.tree_shap(_p32(feature), threshold.ctypes.data_as(pd),
+                      _p32(left), _p32(right), v.ctypes.data_as(pd),
+                      cover.ctypes.data_as(pd), n, n_classes, n_features,
+                      X.ctypes.data_as(pd), n_samples, phi.ctypes.data_as(pd),
+                      int(t.max_depth) + 1)
+        phi_total += phi
+    return phi_total[:, :n_features, :] / len(rf.estimators_)

@@ -1,7 +1,8 @@
 // The port's host-side native runtime (a copy of the functions of
 // obia_tpu/native/src/obia_native.cpp that obia_tpu_torch calls): sparse
-// union-find component resolution (the sharded CCL's seam merge) and the
-// scanline polygoniser over row-wise RLE labels with its packed export.
+// union-find component resolution (the sharded CCL's seam merge), the
+// scanline polygoniser over row-wise RLE labels with its packed export, and
+// path-dependent TreeSHAP for the random forest of classify().
 //
 // Exposed with a plain C ABI for ctypes binding (obia_tpu_torch/native);
 // built at first use with `g++ -O3 -std=c++17 -shared -fPIC`.
@@ -310,6 +311,176 @@ void polygonize_export(void* h, int64_t* labels, int64_t* n_pts,
         areas[i] = r.signed_area;
         std::memcpy(out, r.xy.data(), r.xy.size() * sizeof(double));
         out += r.xy.size();
+    }
+}
+
+}  // extern "C"
+
+// ---------------------------------------------------------------------------
+// TreeSHAP (path-dependent, Lundberg et al. 2018) for dense-array decision
+// trees, in place of shap.TreeExplainer on random forests (the shap
+// package is not a dependency). Trees arrive in a dense layout:
+// feature[n] (-1 = leaf), threshold[n], left[n], right[n] (self-loop at
+// leaves), values[n * n_classes] (leaf distributions), node_sample_weight
+// (cover) [n].
+// phi has shape (n_samples, n_features + 1, n_classes); the last feature
+// slot accumulates the expected value (bias) per sample.
+// ---------------------------------------------------------------------------
+
+namespace treeshap {
+
+struct PathElem {
+    int feature_index;
+    double zero_fraction;
+    double one_fraction;
+    double pweight;
+};
+
+struct Ctx {
+    const int32_t* feature;
+    const double* threshold;
+    const int32_t* left;
+    const int32_t* right;
+    const double* values;       // (n_nodes, n_classes)
+    const double* cover;        // (n_nodes,)
+    int n_classes;
+    const double* x;            // one sample (n_features,)
+    double* phi;                // (n_features + 1, n_classes)
+    int n_features;
+};
+
+static void extend_path(PathElem* path, int depth, double zero, double one,
+                        int fi) {
+    path[depth].feature_index = fi;
+    path[depth].zero_fraction = zero;
+    path[depth].one_fraction = one;
+    path[depth].pweight = depth == 0 ? 1.0 : 0.0;
+    for (int i = depth - 1; i >= 0; --i) {
+        path[i + 1].pweight += one * path[i].pweight * (i + 1)
+                               / static_cast<double>(depth + 1);
+        path[i].pweight = zero * path[i].pweight * (depth - i)
+                          / static_cast<double>(depth + 1);
+    }
+}
+
+static void unwind_path(PathElem* path, int depth, int index) {
+    const double one = path[index].one_fraction;
+    const double zero = path[index].zero_fraction;
+    double next = path[depth].pweight;
+    for (int i = depth - 1; i >= 0; --i) {
+        if (one != 0) {
+            const double tmp = path[i].pweight;
+            path[i].pweight = next * (depth + 1)
+                              / (static_cast<double>(i + 1) * one);
+            next = tmp - path[i].pweight * zero * (depth - i)
+                         / static_cast<double>(depth + 1);
+        } else {
+            path[i].pweight = path[i].pweight * (depth + 1)
+                              / (zero * (depth - i));
+        }
+    }
+    for (int i = index; i < depth; ++i) {
+        path[i].feature_index = path[i + 1].feature_index;
+        path[i].zero_fraction = path[i + 1].zero_fraction;
+        path[i].one_fraction = path[i + 1].one_fraction;
+    }
+}
+
+static double unwound_sum(const PathElem* path, int depth, int index) {
+    const double one = path[index].one_fraction;
+    const double zero = path[index].zero_fraction;
+    double next = path[depth].pweight;
+    double total = 0.0;
+    for (int i = depth - 1; i >= 0; --i) {
+        if (one != 0) {
+            const double tmp = next * (depth + 1)
+                               / (static_cast<double>(i + 1) * one);
+            total += tmp;
+            next = path[i].pweight - tmp * zero * (depth - i)
+                                     / static_cast<double>(depth + 1);
+        } else {
+            total += path[i].pweight / (zero * (depth - i)
+                                        / static_cast<double>(depth + 1));
+        }
+    }
+    return total;
+}
+
+static void recurse(Ctx& c, int node, PathElem* parent_path, int depth,
+                    double zero, double one, int pi) {
+    // copy parent path
+    PathElem* path = parent_path + depth + 1;  // contiguous scratch layout
+    std::memcpy(path, parent_path, sizeof(PathElem) * (depth > 0 ? depth : 0));
+    extend_path(path, depth, zero, one, pi);
+
+    const bool is_leaf = c.feature[node] < 0;
+    if (is_leaf) {
+        for (int i = 1; i <= depth; ++i) {
+            const double w = unwound_sum(path, depth, i);
+            const PathElem& el = path[i];
+            const double scale = w * (el.one_fraction - el.zero_fraction);
+            const double* v = c.values + static_cast<size_t>(node) * c.n_classes;
+            double* out = c.phi + static_cast<size_t>(el.feature_index)
+                                  * c.n_classes;
+            for (int k = 0; k < c.n_classes; ++k) out[k] += scale * v[k];
+        }
+        return;
+    }
+
+    const int f = c.feature[node];
+    const int l = c.left[node];
+    const int r = c.right[node];
+    const int hot = (c.x[f] <= c.threshold[node]) ? l : r;
+    const int cold = (hot == l) ? r : l;
+    const double cover_node = c.cover[node];
+    const double rh = c.cover[hot] / cover_node;
+    const double rc = c.cover[cold] / cover_node;
+
+    double iz = 1.0, io = 1.0;
+    int k = 0;
+    for (; k <= depth; ++k) {
+        if (path[k].feature_index == f) break;
+    }
+    int new_depth = depth;
+    if (k <= depth) {
+        iz = path[k].zero_fraction;
+        io = path[k].one_fraction;
+        unwind_path(path, depth, k);
+        new_depth = depth - 1;
+    }
+    recurse(c, hot, path, new_depth + 1, iz * rh, io, f);
+    recurse(c, cold, path, new_depth + 1, iz * rc, 0.0, f);
+}
+
+}  // namespace treeshap
+
+extern "C" {
+
+void tree_shap(const int32_t* feature, const double* threshold,
+               const int32_t* left, const int32_t* right,
+               const double* values, const double* cover,
+               int64_t n_nodes, int32_t n_classes, int32_t n_features,
+               const double* X, int64_t n_samples,
+               double* phi /* (n_samples, n_features + 1, n_classes) */,
+               int32_t max_depth) {
+    const int scratch = (max_depth + 2) * (max_depth + 2);
+    std::vector<treeshap::PathElem> path(scratch);
+    for (int64_t s = 0; s < n_samples; ++s) {
+        treeshap::Ctx c{feature, threshold, left, right, values, cover,
+                        n_classes, X + s * n_features,
+                        phi + s * static_cast<size_t>(n_features + 1)
+                            * n_classes,
+                        n_features};
+        // bias slot (phi[:, n_features, :]): the tree's expected value =
+        // the ROOT node's (normalised) class distribution; with it, the
+        // per-tree phi satisfies bias + sum(phi) == leaf prediction. (The
+        // Python wrapper slices the slot off and recomputes the forest
+        // base itself; direct C callers get the documented contract.)
+        for (int32_t k = 0; k < n_classes; ++k)
+            c.phi[static_cast<size_t>(n_features) * n_classes + k] +=
+                values[k];
+        std::memset(path.data(), 0, sizeof(treeshap::PathElem) * scratch);
+        treeshap::recurse(c, 0, path.data(), 0, 1.0, 1.0, -1);
     }
 }
 

@@ -91,28 +91,27 @@ def segment_mosaic(image_data, n_segments: int = 1000,
 def mosaic_pipeline(image, n_segments: int = 1000, compactness: float = 10.0,
                     *, mesh: Mesh, output_gpkg: Optional[str] = None,
                     training_classes=None,
+                    classify_kwargs: Optional[dict] = None,
                     objects_kwargs: Optional[dict] = None, **mosaic_kwargs):
     """Config 5: the bands normalised on the mesh's home device, sharded
     segmentation, the sharded spectral and GLCM features of the original
-    bands, optionally a GeoPackage. Returns the ``ObjectTable`` of
-    ``segmentation/segment_statistics.py`` over a ``SegmentLayer`` whose
-    ``shards`` keep the labels in their mesh blocks.
+    bands, optionally classification and a GeoPackage. Returns the
+    ``ObjectTable`` of ``segmentation/segment_statistics.py`` over a
+    ``SegmentLayer`` whose ``shards`` keep the labels in their mesh blocks;
+    with ``training_classes``, the table that
+    ``classification.classify.classify(objects, training_classes,
+    **classify_kwargs)`` returns (``predicted_class`` and
+    ``prediction_margin`` added), classified on the mesh's home device
+    unless ``classify_kwargs`` names a ``device``.
 
     ``image``: an ``Image`` of this package or of ``obia_tpu``; ``mesh``
     places the shards (``make_mesh(8, ["cuda:0"])`` on one card).
-    ``output_gpkg`` writes through
-    ``ObjectTable.to_geodataframe()``, which imports pandas.
-    ``training_classes`` raises: classification is not ported yet.
+    ``output_gpkg`` writes the table's GeoDataFrame, which imports pandas.
     """
     from ..segmentation.segment_boundaries import (_normalize_select,
                                                    layer_from_labels)
     from ..segmentation.segment_statistics import create_objects
 
-    if training_classes is not None:
-        raise NotImplementedError(
-            "mosaic_pipeline(training_classes=...) needs "
-            "classification/classify.py, which obia_tpu_torch does not port "
-            "yet (ROADMAP.md, Queue 1)")
     image = as_image(image)
     H, W, C = image.img_data.shape
     with telemetry.stage("mosaic.normalize", H * W / 1e6):
@@ -125,7 +124,14 @@ def mosaic_pipeline(image, n_segments: int = 1000, compactness: float = 10.0,
     layer = layer_from_labels(labels, n_labels, image, "mosaic",
                               async_polygonize=True, shards=lab_sh)
     objects = create_objects(layer, image, **(objects_kwargs or {}))
-    if output_gpkg:
+    if training_classes is not None:
+        from ..classification.classify import classify
+        result = classify(objects, training_classes,
+                          **{"device": mesh.home, **(classify_kwargs or {})})
+        objects = result.table
+        if output_gpkg:
+            result.classified.to_file(output_gpkg, layer="segments")
+    elif output_gpkg:
         objects.to_geodataframe().to_file(output_gpkg, layer="segments")
     return objects
 

@@ -10,7 +10,7 @@ is a pandas-free :class:`ObjectTable` of numpy columns plus the geometries.
 """
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import numpy as np
 
@@ -42,27 +42,51 @@ def _create_empty_stats_columns(spectral_bands, textural_bands,
 
 
 class ObjectTable:
-    """Columnar feature table: ``columns`` maps each schema column except
+    """Columnar feature table: ``columns`` maps each column except
     ``geometry`` to a numpy array of one value per object, in schema order;
-    ``geometry`` joins the segment layer's polygonisation on first read."""
+    ``geometry`` joins the segment layer's polygonisation on first read.
+    ``rows`` (None: every segment, in order) are the layer rows of the
+    table's objects, as :meth:`take` leaves them."""
 
-    def __init__(self, columns: Dict[str, np.ndarray], layer: SegmentLayer):
+    def __init__(self, columns: Dict[str, np.ndarray], layer: SegmentLayer,
+                 rows: Optional[np.ndarray] = None):
         self.columns = columns
         self.layer = layer
+        self.rows = rows
 
     def __len__(self) -> int:
-        return len(self.layer)
+        return len(self.layer) if self.rows is None else len(self.rows)
 
     def __getitem__(self, name: str):
         return self.geometry if name == "geometry" else self.columns[name]
 
     @property
     def geometry(self) -> List:
-        return self.layer.geometry
+        g = self.layer.geometry
+        return g if self.rows is None else [g[i] for i in self.rows]
 
     @property
     def crs(self):
         return self.layer.crs
+
+    def take(self, positions) -> "ObjectTable":
+        """The objects at ``positions`` (integer positions, or a boolean
+        mask), in that order."""
+        pos = np.arange(len(self))[np.asarray(positions)]
+        rows = pos if self.rows is None else self.rows[pos]
+        return ObjectTable({c: v[pos] for c, v in self.columns.items()},
+                           self.layer, rows)
+
+    def with_columns(self, **columns) -> "ObjectTable":
+        """A table with ``columns`` (one value per object each) added after
+        the others, or replacing a column of the same name."""
+        for name, v in columns.items():
+            if len(v) != len(self):
+                raise ValueError(f"column {name!r} has {len(v)} values for "
+                                 f"{len(self)} objects")
+        return ObjectTable({**self.columns, **{
+            c: np.asarray(v) for c, v in columns.items()}}, self.layer,
+            self.rows)
 
     def to_geodataframe(self):
         """:class:`obia_tpu_torch.vector.geodataframe.GeoDataFrame` of

@@ -1,6 +1,7 @@
 """GeoDataFrame: a pandas DataFrame with a geometry column + CRS (the
 port's copy of ``obia_tpu/vector/geodataframe.py``, trimmed to
-construction and the GeoPackage writer).
+construction, the ``intersects`` predicate, the GeoPackage writer and
+``sjoin``, which ``label_segments`` joins labelled points with).
 
 This module imports pandas, which the card's machine need not have: the
 port imports it only inside ``ObjectTable.to_geodataframe``, at the API
@@ -8,11 +9,13 @@ edge.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import List, Optional
 
+import numpy as np
 import pandas as pd
 
 from ..geometry.crs import CRS
+from ..geometry.geom import Geometry, MultiPolygon, Point, Polygon
 from ..io import gpkg as gpkg_io
 
 
@@ -55,6 +58,21 @@ class GeoDataFrame(pd.DataFrame):
     def geometry(self) -> pd.Series:
         return self["geometry"]
 
+    # -- predicates -----------------------------------------------------------
+    def intersects(self, other: Geometry) -> pd.Series:
+        ob = other.bounds
+        out = []
+        for g in self.geometry:
+            if g is None:
+                out.append(False)
+                continue
+            b = g.bounds
+            if b[2] < ob[0] or ob[2] < b[0] or b[3] < ob[1] or ob[3] < b[1]:
+                out.append(False)
+            else:
+                out.append(g.intersects(other))
+        return pd.Series(out, index=self.index)
+
     # -- I/O ------------------------------------------------------------------
     def to_file(self, path: str, driver: Optional[str] = None,
                 layer: Optional[str] = None) -> None:
@@ -78,3 +96,84 @@ class GeoDataFrame(pd.DataFrame):
 def _layer_from_path(path: str) -> str:
     import os
     return os.path.splitext(os.path.basename(path))[0] or "layer"
+
+
+# --- spatial join -------------------------------------------------------------
+
+def sjoin(left: GeoDataFrame, right: GeoDataFrame, how: str = "inner",
+          predicate: str = "intersects",
+          lsuffix: str = "left", rsuffix: str = "right") -> GeoDataFrame:
+    """Inner spatial join on ``intersects``, geopandas-shaped: one row per
+    (left, right) pair that intersects, the left index kept, the right
+    row's position in ``index_right``, and colliding column names suffixed
+    on both sides. Right sides of points against polygons take a bbox
+    prefilter and a vectorised point-in-polygon test."""
+    if how != "inner":
+        raise NotImplementedError("only how='inner' is supported")
+    if predicate != "intersects":
+        raise NotImplementedError(f"predicate {predicate!r} not supported")
+
+    lgeoms = list(left.geometry)
+    rgeoms = list(right.geometry)
+    pairs: List[tuple] = []  # (left_pos, right_pos)
+
+    all_points = all(isinstance(g, Point) for g in rgeoms if g is not None)
+    all_polys = all(isinstance(g, (Polygon, MultiPolygon))
+                    for g in lgeoms if g is not None)
+    if all_points and all_polys:
+        xs = np.array([g.x if g is not None else np.nan for g in rgeoms])
+        ys = np.array([g.y if g is not None else np.nan for g in rgeoms])
+        for li, lg in enumerate(lgeoms):
+            if lg is None:
+                continue
+            b = lg.bounds
+            cand = np.nonzero((xs >= b[0]) & (xs <= b[2])
+                              & (ys >= b[1]) & (ys <= b[3]))[0]
+            if len(cand) == 0:
+                continue
+            hit = lg.contains_points(xs[cand], ys[cand])
+            for ri in cand[hit]:
+                pairs.append((li, int(ri)))
+    else:
+        rbounds = np.array([g.bounds if g is not None else (np.nan,) * 4
+                            for g in rgeoms])
+        for li, lg in enumerate(lgeoms):
+            if lg is None:
+                continue
+            b = lg.bounds
+            cand = np.nonzero(~((rbounds[:, 2] < b[0]) | (b[2] < rbounds[:, 0])
+                                | (rbounds[:, 3] < b[1]) | (b[3] < rbounds[:, 1])))[0]
+            for ri in cand:
+                rg = rgeoms[ri]
+                if rg is not None and lg.intersects(rg):
+                    pairs.append((li, int(ri)))
+
+    if not pairs:
+        out = GeoDataFrame(columns=list(left.columns)
+                           + [c for c in right.columns if c != "geometry"]
+                           + ["index_right"])
+        object.__setattr__(out, "crs", left.crs)
+        return out
+
+    lpos = [p[0] for p in pairs]
+    rpos = [p[1] for p in pairs]
+    lpart = left.iloc[lpos].copy()
+    rpart = right.drop(columns=["geometry"], errors="ignore").iloc[rpos]
+
+    # geopandas collision semantics: BOTH sides get suffixed
+    collide = {c for c in rpart.columns
+               if c in lpart.columns and c != "geometry"}
+    data = {}
+    for c in lpart.columns:
+        name = f"{c}_{lsuffix}" if c in collide else c
+        data[name] = (lpart[c].to_numpy(dtype=object) if c != "geometry"
+                      else list(lpart[c]))
+    for c in rpart.columns:
+        name = f"{c}_{rsuffix}" if c in collide else c
+        data[name] = rpart[c].to_numpy(dtype=object)
+    data["index_right"] = right.index.to_numpy()[rpos]
+
+    out = GeoDataFrame(data)
+    out.index = left.index.take(lpos)
+    object.__setattr__(out, "crs", left.crs)
+    return out

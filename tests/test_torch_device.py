@@ -68,6 +68,21 @@ def _run_make_mesh(device):
     return make_mesh(8, devices)
 
 
+def _run_classify(device):
+    from obia_tpu_torch.classification.classify import classify
+    from obia_tpu_torch.geometry.geom import box
+    from obia_tpu_torch.segmentation.segment_statistics import ObjectTable
+    X, y = _xy()
+    layer = tsb.SegmentLayer(len(X), [box(i, 0, i + 1, 1)
+                                      for i in range(len(X))],
+                             None, None, None, None, None)
+    table = ObjectTable({"segment_id": np.arange(1, len(X) + 1),
+                         **{f"b{i}_mean": X[:, i] for i in range(3)}}, layer)
+    return classify(table, table.with_columns(feature_class=y),
+                    method="mlp", hidden_layer_sizes=(4,), max_iter=2,
+                    **device)
+
+
 def _quickshift_image():
     return np.random.default_rng(3).random((12, 14, 3)).astype(np.float32)
 
@@ -88,6 +103,7 @@ ENTRY_POINTS = {
     "mlp_from_flax": lambda device: tmlp.mlp_from_flax(
         _flax_params(), [0, 1], (4,), **device).predict_proba(np.ones((2, 3))),
     "make_mesh": _run_make_mesh,
+    "classify": _run_classify,
     "quickshift": lambda device: tqs.quickshift(
         _quickshift_image(), kernel_size=1, max_dist=3, **device),
     "quickshift_tree": lambda device: tqs.quickshift_tree(

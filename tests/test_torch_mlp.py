@@ -1,9 +1,10 @@
 """obia_tpu_torch's MLP classifier against the JAX package's Flax MLP.
 
 Bars: weights carried with ``mlp_from_flax`` give JAX's ``predict_proba`` to
-atol 1e-6 (float32 logits of unit-scale features; both softmaxes run on the
-host in float32); one training epoch from the same parameters, on the same
-numpy permutation, lands within rtol 1e-4 / atol 1e-6 of JAX's parameters
+atol 1e-6 (float32 logits of unit-scale features; both softmaxes run in
+float32 in the same max-subtract form); one training epoch from the same
+parameters, on the same numpy permutation, lands within rtol 1e-4 / atol
+1e-6 of JAX's parameters
 (Adam's update in another rounding order); a full fit reaches the accuracy
 bar of tests/test_classification.py.
 """

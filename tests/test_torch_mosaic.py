@@ -165,10 +165,39 @@ def test_mosaic_pipeline_writes_a_geopackage(pipelines, mesh, tmp_path):
 
 
 def test_training_classes_raise(pipelines, mesh):
-    image = pipelines[0]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """A training table without ``feature_class`` cannot classify."""
+    image, _, got = pipelines
+    with pytest.raises(KeyError, match="feature_class"):
         tmos.mosaic_pipeline(image, n_segments=24, mesh=mesh,
-                             training_classes=object())
+                             objects_kwargs=OKW,
+                             training_classes=got.take(np.arange(8)))
+
+
+@pytest.mark.parametrize("method,kw", [
+    ("rf", dict(n_estimators=10, random_state=0)),
+    ("mlp", dict(hidden_layer_sizes=(8,), max_iter=20, random_state=0))])
+def test_mosaic_pipeline_classifies(pipelines, mesh, method, kw, tmp_path):
+    """With ``training_classes`` the mosaic returns the table ``classify``
+    gives for its objects, and writes it."""
+    from obia_tpu.vector import read_file
+    from obia_tpu_torch.classification.classify import classify
+
+    image, _, got = pipelines
+    idx = np.arange(0, len(got), 2)
+    training = got.take(idx).with_columns(
+        feature_class=np.where(got["b0_mean"][idx] > np.median(
+            got["b0_mean"]), 1, 2))
+    path = str(tmp_path / "classified.gpkg")
+    out = tmos.mosaic_pipeline(image, n_segments=24, mesh=mesh,
+                               objects_kwargs=OKW, output_gpkg=path,
+                               training_classes=training,
+                               classify_kwargs=dict(method=method, **kw))
+    want = classify(got, training, method=method, device="cpu", **kw).table
+    assert list(out.columns) == list(want.columns)
+    for c in want.columns:
+        np.testing.assert_array_equal(out[c], want[c], err_msg=c)
+    back = read_file(path)
+    assert list(back["predicted_class"]) == list(want["predicted_class"])
 
 
 @pytest.mark.parametrize("tol", [0, 1, 2])

@@ -1,8 +1,9 @@
 """obia_tpu_torch runs with jax, pandas, sklearn, PIL and the JAX package
 ``obia_tpu`` unavailable, as on a machine that has only torch, numpy and
 scipy: the port imports none of them on its main paths (SLIC + forest,
-quickshift + MLP, the sharded mosaic on a 2 x 4 CPU mesh), and never loads
-jax, flax or optax. Its sources and ``chip_smoke.py`` import neither jax
+quickshift + MLP, ``classify`` with the MLP and Kernel SHAP on object
+tables, the sharded mosaic on a 2 x 4 CPU mesh), and never loads jax, flax
+or optax. Its sources and ``chip_smoke.py`` import neither jax
 nor ``obia_tpu``."""
 import subprocess
 import sys
@@ -65,6 +66,18 @@ SCRIPT = textwrap.dedent("""
                              device="cpu")
     clf.fit(Xq, Xq[:, 0] > np.median(Xq[:, 0]))
     assert np.allclose(clf.predict_proba(Xq).sum(1), 1.0, atol=1e-5)
+
+    from obia_tpu_torch.classification.classify import classify
+    training = t.with_columns(
+        feature_class=(X[:, 0] > np.median(X[:, 0])).astype(int))
+    res = classify(t, training, method="mlp", hidden_layer_sizes=(8,),
+                   max_iter=5, compute_shap=True, sample_shap=True,
+                   device="cpu")
+    rows = res.shap_inputs[0]
+    assert res.shap_values.shape == (len(rows), rows.shape[1], 2)
+    assert np.isfinite(res.shap_values).all()
+    assert len(res.table["predicted_class"]) == len(t)
+    assert np.allclose(res.proba.sum(1), 1.0, atol=1e-5)
 
     from obia_tpu_torch.parallel.mesh import make_mesh
     from obia_tpu_torch.parallel.mosaic import mosaic_pipeline
