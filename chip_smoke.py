@@ -37,7 +37,11 @@ Phases, in order; any failure raises and exits non-zero:
 6. cross-check: the same slice at 512^2 on the card and on the CPU (the
    plain path the CPU tests hold against the JAX reference): object counts
    within 1%, each feature column's mean within 1e-3 of the column's mean
-   magnitude;
+   magnitude; then the ``sigma=1`` pre-blur: the blurred float32 Lab image
+   on the card within rtol 1e-6 of the CPU's (and the blur alone on the
+   CPU's Lab image copied to the card), with no convolution op in the
+   card's blur, and the slice with ``sigma=1`` cross-checked as above with
+   label partitions agreeing on >= 99.5% of the pixels;
 7. hold the quickshift density and parent kernels against their twins on
    edge-case scenes (ragged 70x300 C=3, 96x80 C=1, 64x64 C=8, a constant
    plateau) at radii 3, 15 and the density's largest, max_dist 0.6 r:
@@ -56,7 +60,8 @@ Phases, in order; any failure raises and exits non-zero:
    count, all timed with CUDA events;
 9. cross-check: the config-2 slice at 256^2 on the card and on the CPU:
    object counts within 1%, label partitions agreeing on >= 99.5% of the
-   pixels, column means as in phase 6;
+   pixels, column means as in phase 6; then the ``sigma=1`` pre-blur as in
+   phase 6;
 10. hold the seam-spanner histogram kernel (``glcm_spanner_hist``: every
    shard's pieces of every spanner in one launch, the tables summed over
    the shards and their sum (C + C^T)^2) against its twin on an edge-case
@@ -88,7 +93,23 @@ Phases, in order; any failure raises and exits non-zero:
    single-device ``create_objects`` on the mosaic's labels (rtol 2e-4,
    atol 1e-5);
 13. cross-check: config 5 at 768^2 (``bench.py``'s default size for it) on
-   the card and on the CPU, as in phase 9.
+   the card and on the CPU, as in phase 9;
+14. drive config 3 of ``bench.py`` at its default size: ``build_scene(2048,
+   2048)`` written as an uncompressed GeoTIFF, then
+   ``create_tiled_segments(raster, out, tile_size=512, buffer=64,
+   n_segments=700)`` on the card, once cold and once warm, with the warm
+   run's stage split (host clock, not synced) and MP/s; checks: every tile
+   ``done`` and none ``failed`` in the manifest (after every run of config
+   3), ``segments.gpkg`` read back with N rows and ``segment_id`` 1..N,
+   the polygons covering more than 93% and at most 100% of the raster's
+   area, and more than 99.5% of the pixels covered at most once (each
+   polygon rasterised over its own bounding box);
+15. cross-check: config 3 at 1024^2 with the same tiling on the card and on
+   the CPU: segment counts within 1%, rasterised label partitions agreeing
+   on >= 99.5% of the pixels; then the card's run resumed
+   (``resume=True``), which must segment no tile and give the same count
+   (resumed here and not at 2048^2, where pass 2's host predicates would
+   add ~3 minutes to the script).
 
 After the build a line gives the quickshift kernels' registers, spilled
 bytes and pixels a thread (P) as the library reports them. The last two
@@ -139,6 +160,9 @@ QS_KW = dict(method="quickshift", ratio=1.0, kernel_size=5, max_dist=10.0)
 C5_SIZE = 4096          # bench.py config 5 with OBIA_BENCH5_REAL=1
 C5_CROSS_SIZE = 768     # bench.py's default size for config 5
 C5_SHARDS = 8           # the 2 x 4 mesh
+C3_SIZE = 2048          # bench.py's default run of config 3
+C3_CROSS_SIZE = 1024
+C3_KW = dict(tile_size=512, buffer=64, n_segments=700)
 HBM_BYTES_PER_MS = 3.35e9   # H100 SXM: 3.35 TB/s
 FP32_OPS_PER_MS = 67e9      # H100 SXM: 67 TFLOP/s float32 outside the MMAs
 SFU_OPS_PER_MS = 132 * 16 * 1.98e6  # 132 SMs x 16 exponentials a clock
@@ -443,16 +467,17 @@ def classify_phase(table, device: str = "cuda") -> None:
             "forest, is not installed; config 4 keeps the stand-in forest")
 
 
-def run_slice(image, device):
+def run_slice(image, device, **seg_kw):
     """Config 4: segment + featurize/classify, synchronised; returns
-    (segments, proba, seconds)."""
+    (segments, proba, seconds). ``seg_kw`` (``sigma``) go to SLIC."""
     import torch
 
     from obia_tpu_torch.segmentation.segment import segment
     t0 = time.perf_counter()
     s = segment(image, segmentation_bands=[0, 3, 6],
                 statistics_bands=list(range(BANDS)), method="slic",
-                n_segments=N_SEGMENTS, compactness=10, device=device)
+                n_segments=N_SEGMENTS, compactness=10, device=device,
+                **seg_kw)
     proba = featurize_classify(s.table, device)
     s.table.geometry  # join the polygonisation thread
     if torch.device(device).type == "cuda":
@@ -460,14 +485,14 @@ def run_slice(image, device):
     return s, proba, time.perf_counter() - t0
 
 
-def run_config2(image, device):
+def run_config2(image, device, **seg_kw):
     """Config 2: quickshift segment + MLP fit/predict, synchronised; returns
-    (segments, proba, seconds)."""
+    (segments, proba, seconds). ``seg_kw`` (``sigma``) go to quickshift."""
     import torch
 
     from obia_tpu_torch.segmentation.segment import segment
     t0 = time.perf_counter()
-    s = segment(image, device=device, **QS_KW)
+    s = segment(image, device=device, **QS_KW, **seg_kw)
     proba = mlp_classify(s.table, device)
     s.table.geometry  # join the polygonisation thread
     if torch.device(device).type == "cuda":
@@ -958,6 +983,179 @@ def cross_check(run, scene, what: str) -> None:
     check_column_means(sg.table, sc.table)
 
 
+def blurred_input(scene: np.ndarray, bands, device: str):
+    """The float32 image SLIC / quickshift cluster with ``sigma=1``: the
+    scene's ``bands`` normalised, converted to Lab, then blurred."""
+    import torch
+
+    from obia_tpu_torch.ops.color import rgb_to_lab
+    from obia_tpu_torch.ops.filters import gaussian_filter
+    from obia_tpu_torch.segmentation.segment_boundaries import \
+        _normalize_select
+    lab = rgb_to_lab(_normalize_select(torch.as_tensor(
+        scene, dtype=torch.float32, device=device), bands))
+    return lab, gaussian_filter(lab, 1.0)
+
+
+def sigma_check(run, scene, bands, what: str) -> None:
+    """The ``sigma=1`` pre-blur on the card and on the CPU: the blurred
+    float32 image within rtol 1e-6 (the blur alone, on the CPU's Lab image
+    copied to the card, too), no convolution op in the card's blur, then
+    the slice with ``sigma=1`` cross-checked as :func:`cross_check` does."""
+    import torch
+
+    from obia_tpu_torch.ops.filters import gaussian_filter
+    lab_c, blur_c = blurred_input(scene, bands, "cpu")
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        lab_g, blur_g = blurred_input(scene, bands, "cuda")
+        alone = gaussian_filter(lab_c.cuda(), 1.0).cpu()
+    convs = [e.key for e in prof.key_averages()
+             if "conv" in e.key.lower() or "cudnn" in e.key.lower()]
+    d_lab = float((lab_g.cpu() - lab_c).abs().max())
+    diff = (blur_g.cpu() - blur_c).abs()
+    rel = float((diff / blur_c.abs().clamp(min=1e-30)).max())
+    d_alone = float((alone - blur_c).abs().max())
+    log(f"sigma=1 blur {what}, card vs CPU: Lab max |diff| {d_lab:.3e}, "
+        f"blurred max |diff| {float(diff.max()):.3e} (max rel {rel:.3e}); "
+        f"the blur alone on the same Lab image {d_alone:.3e}; convolution "
+        f"ops {convs}")
+    if convs:
+        raise AssertionError(f"the blur ran a convolution: {convs}")
+    torch.testing.assert_close(blur_g.cpu(), blur_c, rtol=1e-6, atol=0)
+    torch.testing.assert_close(alone, blur_c, rtol=1e-6, atol=0)
+    cross_check(lambda im, dev: run(im, dev, sigma=1.0), scene,
+                f"{what}, sigma=1")
+
+
+def config3_scene(size: int, root: str) -> str:
+    """bench.py's config-3 raster: ``build_scene(size, size)`` written as
+    an uncompressed GeoTIFF; returns its path."""
+    from obia_tpu_torch.geometry.affine import Affine
+    from obia_tpu_torch.io.tiff import write_tiff
+    path = os.path.join(root, f"scene_{size}.tif")
+    write_tiff(path, build_scene(h=size, w=size),
+               transform=Affine(1.0, 0, 0, 0, -1.0, size), crs="EPSG:32633",
+               compression="none")
+    return path
+
+
+def run_config3(raster: str, out_dir: str, device: str, **kw):
+    """Config 3: ``create_tiled_segments`` as bench.py times it (tile 512,
+    buffer 64, n_segments 700), synchronised; raises if the manifest marks
+    any tile failed. Returns (segments, seconds)."""
+    import torch
+
+    from obia_tpu_torch.checkpoint import TileManifest
+    from obia_tpu_torch.utils.tiling import create_tiled_segments
+    t0 = time.perf_counter()
+    out = create_tiled_segments(raster, out_dir, **C3_KW, device=device,
+                                **kw)
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    manifest = TileManifest(os.path.join(out_dir, "manifest.json"))
+    if manifest.failed() or not all(
+            v["status"] == "done" for v in manifest.state.values()):
+        raise AssertionError(f"config 3 tiles not done: {manifest.state}")
+    return out, seconds
+
+
+def coverage(geoms, size: int):
+    """(label map, cover count) of polygons over a size^2 raster whose
+    transform is Affine(1, 0, 0, 0, -1, size), each polygon rasterised over
+    its own bounding box only: label k where polygon k covers a pixel
+    centre (-1 where none), and how many polygons cover it."""
+    from obia_tpu_torch.geometry.affine import Affine
+    from obia_tpu_torch.geometry.rasterize import rasterize
+    labels = np.full((size, size), -1, np.int64)
+    counts = np.zeros((size, size), np.int32)
+    for k, g in enumerate(geoms):
+        x0, y0, x1, y1 = g.bounds
+        c0, c1 = max(0, math.floor(x0)), min(size, math.ceil(x1))
+        r0, r1 = max(0, math.floor(size - y1)), min(size,
+                                                    math.ceil(size - y0))
+        if c1 <= c0 or r1 <= r0:
+            continue
+        m = rasterize([(g, 1)], (r1 - r0, c1 - c0),
+                      transform=Affine(1, 0, c0, 0, -1, size - r0),
+                      dtype=np.uint8).astype(bool)
+        counts[r0:r1, c0:c1] += m
+        labels[r0:r1, c0:c1][m] = k
+    return labels, counts
+
+
+def config3_phase(size: int, root: str, card: str) -> None:
+    """Config 3 at size^2 on the card: cold and warm runs with the stage
+    split of the warm one, the output read back, and its coverage."""
+    from obia_tpu_torch import telemetry
+    from obia_tpu_torch.io.gpkg import read_gpkg
+    from obia_tpu_torch.ops import glcm_kernel
+    from obia_tpu_torch.ops import quickshift_kernel as qk
+    raster = config3_scene(size, root)
+    mp = size * size / 1e6
+    cold_out, cold = run_config3(raster, os.path.join(root, "cold"), "cuda")
+    telemetry.reset()
+    glcm_kernel.launches = glcm_kernel.hist_launches = 0
+    qk.launches.update(qs_density=0, qs_parent=0)
+    warm_dir = os.path.join(root, "warm")
+    out, warm = run_config3(raster, warm_dir, "cuda")
+    launches = {"glcm_sums": glcm_kernel.launches,
+                "glcm_hist": glcm_kernel.hist_launches, **qk.launches}
+    split = telemetry.report()
+    n = len(out)
+    log(f"config 3 {size}^2 RGB ({C3_KW}): {n} "
+        f"segments (cold run {len(cold_out)}), cold {cold:.3f} s, warm "
+        f"{warm:.3f} s, {mp / warm:.4f} MP/s warm ({card}); hand-kernel "
+        f"launches {launches} (none on this path)")
+    for name in sorted(split):
+        r = split[name]
+        log(f"  stage {name}: {1000 * r['total_s']:.1f} ms in {r['count']} "
+            f"calls")
+    cols, geoms, _ = read_gpkg(os.path.join(warm_dir, "segments.gpkg"))
+    if cols["segment_id"] != list(range(1, n + 1)) or len(geoms) != n:
+        raise AssertionError("segments.gpkg: rows or segment_id 1..N wrong")
+    area = sum(g.area for g in geoms) / (size * size)
+    t0 = time.perf_counter()
+    _, counts = coverage(geoms, size)
+    once = float((counts <= 1).mean())
+    log(f"  coverage {area:.6f} of the raster's area, pixels covered at "
+        f"most once {once:.6f} (rasterised in "
+        f"{time.perf_counter() - t0:.1f} s)")
+    if not 0.93 < area <= 1.0 + 1e-9 or once <= 0.995:
+        raise AssertionError("config 3 coverage outside its bars")
+
+
+def config3_cross_check(size: int, root: str) -> None:
+    """Config 3 at size^2 on the card and on the CPU: segment counts within
+    1%, rasterised partitions agreeing on >= 99.5% of the pixels; then the
+    card's run resumed, which must segment no tile."""
+    from obia_tpu_torch.utils import tiling
+    raster = config3_scene(size, root)
+    gpu_dir = os.path.join(root, f"gpu_{size}")
+    gpu, g_s = run_config3(raster, gpu_dir, "cuda")
+    cpu, c_s = run_config3(raster, os.path.join(root, f"cpu_{size}"), "cpu")
+    lab_g, _ = coverage(gpu.geometry, size)
+    lab_c, _ = coverage(cpu.geometry, size)
+    agree = partition_agreement(lab_g, lab_c)
+    log(f"cross-check config 3 {size}^2: {len(gpu)} segments on the card "
+        f"({g_s:.3f} s), {len(cpu)} on the CPU ({c_s:.3f} s); partitions "
+        f"agree on {agree:.6f} of the pixels")
+    if abs(len(gpu) - len(cpu)) > 0.01 * len(cpu) or agree < 0.995:
+        raise AssertionError("config 3 card vs CPU outside its bars")
+    calls = []
+    real = tiling.create_segments
+    tiling.create_segments = lambda *a, **k: calls.append(1) or real(*a, **k)
+    try:
+        again, resumed = run_config3(raster, gpu_dir, "cuda", resume=True)
+    finally:
+        tiling.create_segments = real
+    log(f"  the card's run resumed: {len(calls)} tiles segmented, "
+        f"{len(again)} segments, {resumed:.3f} s")
+    if calls or len(again) != len(gpu):
+        raise AssertionError("the resumed run segmented a tile")
+
+
 def qs_scenes():
     """(C, H, W) edge-case scenes for the quickshift kernels."""
     rng = np.random.default_rng(11)
@@ -1219,6 +1417,8 @@ def main() -> None:
     # -- 6. cross-check against the CPU plain path ------------------------
     cross_check(run_slice, config4_scene(CROSS_SIZE), f"config 4 "
                 f"{CROSS_SIZE}^2")
+    sigma_check(run_slice, config4_scene(CROSS_SIZE), [0, 3, 6],
+                f"config 4 {CROSS_SIZE}^2")
 
     # -- 7. quickshift kernels vs twins, edge cases -----------------------
     qs_err = [0.0, 0.0]
@@ -1302,6 +1502,8 @@ def main() -> None:
     # -- 9. config-2 cross-check against the CPU plain path ---------------
     cross_check(run_config2, build_scene(h=QS_CROSS_SIZE, w=QS_CROSS_SIZE),
                 f"config 2 {QS_CROSS_SIZE}^2")
+    sigma_check(run_config2, build_scene(h=QS_CROSS_SIZE, w=QS_CROSS_SIZE),
+                [0, 1, 2], f"config 2 {QS_CROSS_SIZE}^2")
 
     # -- 10. the seam-spanner histogram kernel vs its twin, edge cases ------
     from obia_tpu_torch.parallel import mesh as pmesh
@@ -1386,6 +1588,16 @@ def main() -> None:
     # -- 13. config-5 cross-check against the CPU plain path --------------
     cross_check(run_config5, build_scene(h=C5_CROSS_SIZE, w=C5_CROSS_SIZE),
                 f"config 5 {C5_CROSS_SIZE}^2")
+
+    # -- 14-15. config 3, tiled segmentation, then its card-vs-CPU check -----
+    import shutil
+    import tempfile
+    root = tempfile.mkdtemp(prefix="obia_config3_")
+    try:
+        config3_phase(C3_SIZE, root, card)
+        config3_cross_check(C3_CROSS_SIZE, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
 
     log(card_line())
     qs_r, qs_md = 15, QS_KW["max_dist"]  # as qs_time measures

@@ -197,6 +197,47 @@ class TorchMLPClassifier:
     def predict(self, X) -> np.ndarray:
         return self.classes_[np.argmax(self.predict_proba(X), axis=1)]
 
+    # -- checkpointing, in the reference's layout -------------------------
+    def save(self, path: str) -> None:
+        """The weights as the reference saves its Flax variables
+        (``params/params/Dense_i/{kernel, bias}``, kernels (in, out)) in
+        ``path.npz``, and a ``path.meta.json`` sidecar with the classes and
+        the hyper-parameters the network depends on."""
+        import json
+
+        from ..checkpoint import save_pytree
+        dense = {f"Dense_{i}": {"kernel": layer.weight.detach().cpu().numpy().T,
+                                "bias": layer.bias.detach().cpu().numpy()}
+                 for i, layer in enumerate(self._model.layers)}
+        save_pytree(path, {"params": {"params": dense}})
+        meta = {"classes": np.asarray(self.classes_).tolist(),
+                "hidden": list(self.hidden),
+                "activation": self.activation,
+                "alpha": self.alpha,
+                "learning_rate_init": self.lr}
+        with open(path + ".meta.json", "w") as f:
+            json.dump(meta, f)
+
+    def load(self, path: str) -> "TorchMLPClassifier":
+        """Restore a checkpoint written by :meth:`save`, or by the
+        reference's ``FlaxMLPClassifier.save`` on its ``.npz`` path, onto
+        this classifier's device."""
+        import json
+
+        from ..checkpoint import load_pytree
+        with open(path + ".meta.json") as f:
+            meta = json.load(f)
+        self.classes_ = np.asarray(meta["classes"])
+        self.hidden = tuple(int(h) for h in meta["hidden"])
+        self.activation = str(meta["activation"])
+        self.alpha = float(meta["alpha"])
+        self.lr = float(meta["learning_rate_init"])
+        state = load_pytree(path)
+        self._model = mlp_from_flax(state["params"], self.classes_,
+                                    self.hidden, self.activation,
+                                    device=self.device)._model
+        return self
+
 
 def mlp_from_flax(params, classes, hidden, activation: str = "relu",
                   device=None) -> TorchMLPClassifier:

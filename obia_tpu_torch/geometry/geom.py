@@ -6,8 +6,9 @@ point-in-polygon) or a :class:`MultiPolygon` for a region pinched at a
 corner; the GeoPackage writer reads ``bounds``, ``is_empty`` and
 ``geom_type``, and callers read ``area`` and ``centroid``. Labelled points
 (:class:`Point`) and ``intersects`` serve ``label_segments`` and the
-acceptable-classes mask of ``classify``. Coordinates are float64 numpy
-arrays.
+acceptable-classes mask of ``classify``; ``within``, ``contains`` and
+``overlaps`` (shapely's semantics) and :func:`affine_transform` serve the
+tiled segmentation and the rasteriser. Coordinates are float64 numpy arrays.
 """
 from __future__ import annotations
 
@@ -33,6 +34,28 @@ class Geometry:
         if not _bbox_overlap(self.bounds, other.bounds):
             return False
         return _intersects(self, other)
+
+    def within(self, other: "Geometry") -> bool:
+        sb, ob = self.bounds, other.bounds
+        # bbox fast-reject: must be fully inside the candidate's bbox
+        if sb[0] < ob[0] or sb[1] < ob[1] or sb[2] > ob[2] or sb[3] > ob[3]:
+            return False
+        return _within(self, other)
+
+    def contains(self, other: "Geometry") -> bool:
+        return _within(other, self)
+
+    def overlaps(self, other: "Geometry") -> bool:
+        # shapely semantics: interiors intersect but neither contains the
+        # other. Interior intersection = a proper boundary crossing, or a
+        # vertex/edge-midpoint of one STRICTLY inside the other (boundary
+        # touch alone — abutting tile/segment polygons — is NOT overlap)
+        if self.within(other) or other.within(self):
+            return False
+        if _proper_boundary_crossing(self, other):
+            return True
+        return (_any_point_strictly_inside(self, other)
+                or _any_point_strictly_inside(other, self))
 
     def __repr__(self):
         b = self.bounds
@@ -200,6 +223,23 @@ def affine_transform_coords(coords: np.ndarray,
     return np.stack([a * x + b * y + xoff, d * x + e * y + yoff], axis=1)
 
 
+def affine_transform(geom: Geometry, matrix: Sequence[float]) -> Geometry:
+    """Shapely-order affine transform: matrix = [a, b, d, e, xoff, yoff];
+    x' = a*x + b*y + xoff ; y' = d*x + e*y + yoff."""
+    def tx(coords: np.ndarray) -> np.ndarray:
+        return affine_transform_coords(coords, matrix)
+
+    if isinstance(geom, Point):
+        x, y = tx(np.array([[geom.x, geom.y]]))[0]
+        return Point(x, y)
+    if isinstance(geom, Polygon):
+        return Polygon(tx(geom.exterior.coords_array),
+                       [tx(h.coords_array) for h in geom.interiors])
+    if isinstance(geom, MultiPolygon):
+        return MultiPolygon([affine_transform(g, matrix) for g in geom.geoms])
+    raise TypeError(f"cannot transform {type(geom)}")
+
+
 # --- predicates -----------------------------------------------------------------
 
 def _bbox_overlap(b1, b2) -> bool:
@@ -276,7 +316,8 @@ def _segments_intersect(p1, p2, p3, p4) -> bool:
 
 def _rings_of(geom: Geometry) -> List[np.ndarray]:
     """The polygon rings of ``geom`` with at least 2 points (empty
-    geometries have no boundary)."""
+    geometries have no boundary): the reference's ``_paths_of``, which
+    differs only for the LineStrings that the port has no type for."""
     if isinstance(geom, Polygon):
         rings = [geom.exterior.coords_array] + [h.coords_array
                                                 for h in geom.interiors]
@@ -326,3 +367,91 @@ def _intersects(g1: Geometry, g2: Geometry) -> bool:
             return True
         return _boundary_intersects(g1, g2)
     raise TypeError(f"intersects not implemented for {type(g1)}/{type(g2)}")
+
+
+def _any_point_strictly_inside(g: Geometry, container: Geometry) -> bool:
+    """Any vertex or edge midpoint of ``g`` strictly inside ``container``
+    (midpoints catch rectilinear overlaps whose vertices all sit on the
+    container's boundary)."""
+    if not isinstance(container, (Polygon, MultiPolygon)):
+        return False
+    for path in _rings_of(g):
+        mid = (path[:-1] + path[1:]) * 0.5
+        xs = np.concatenate([path[:, 0], mid[:, 0]])
+        ys = np.concatenate([path[:, 1], mid[:, 1]])
+        if _contains_points_strict(container, xs, ys).any():
+            return True
+    return False
+
+
+def _contains_points_strict(geom: Geometry, xs, ys) -> np.ndarray:
+    """Point-in-polygon with boundary EXCLUDED (interior membership)."""
+    if isinstance(geom, MultiPolygon):
+        out = np.zeros(np.shape(xs), dtype=bool)
+        for g in geom.geoms:
+            out |= _contains_points_strict(g, xs, ys)
+        return out
+    if not isinstance(geom, Polygon) or geom.is_empty:
+        return np.zeros(np.shape(xs), dtype=bool)
+    # the raw crossing-number parity is ambiguous for points exactly ON
+    # an edge (it counts crossings to one side only) — exclude the
+    # boundary explicitly so "strictly inside" means interior membership
+    shell = geom.exterior.coords_array
+    inside = (_points_in_ring(shell, xs, ys, strict=True)
+              & ~_points_on_ring_edges(shell, np.asarray(xs, np.float64),
+                                       np.asarray(ys, np.float64)))
+    for h in geom.interiors:
+        inside &= ~_points_in_ring(h.coords_array, xs, ys)
+    return inside
+
+
+def _segments_cross_strict(p1, p2, p3, p4) -> bool:
+    """True only for a PROPER crossing (interiors intersect at one point);
+    shared endpoints, endpoint-on-segment and collinear overlap are all
+    excluded — ``within`` permits boundary contact."""
+    def orient(a, b, c):
+        v = (b[0] - a[0]) * (c[1] - a[1]) - (b[1] - a[1]) * (c[0] - a[0])
+        return 0 if abs(v) < 1e-12 else (1 if v > 0 else -1)
+    o1, o2 = orient(p1, p2, p3), orient(p1, p2, p4)
+    o3, o4 = orient(p3, p4, p1), orient(p3, p4, p2)
+    return o1 * o2 < 0 and o3 * o4 < 0
+
+
+def _proper_boundary_crossing(inner: Geometry, outer: Geometry) -> bool:
+    for r1 in _rings_of(inner):
+        for r2 in _rings_of(outer):
+            if not _bbox_overlap((r1[:, 0].min(), r1[:, 1].min(),
+                                  r1[:, 0].max(), r1[:, 1].max()),
+                                 (r2[:, 0].min(), r2[:, 1].min(),
+                                  r2[:, 0].max(), r2[:, 1].max())):
+                continue
+            for i in range(len(r1) - 1):
+                for j in range(len(r2) - 1):
+                    if _segments_cross_strict(r1[i], r1[i + 1],
+                                              r2[j], r2[j + 1]):
+                        return True
+    return False
+
+
+def _within(inner: Geometry, outer: Geometry) -> bool:
+    if not isinstance(outer, (Polygon, MultiPolygon)):
+        return False
+    if isinstance(inner, Point):
+        return bool(outer.contains_points(np.array(inner.x),
+                                          np.array(inner.y)))
+    if getattr(inner, "is_empty", False):
+        return False  # shapely: empty geometries are within nothing
+    rings = _rings_of(inner)
+    if not rings:
+        return False
+    # all vertices AND edge midpoints inside (midpoints catch edges that
+    # leave a concave outer or span a hole between two inside vertices) …
+    for r in rings:
+        mid = (r[:-1] + r[1:]) * 0.5
+        xs = np.concatenate([r[:, 0], mid[:, 0]])
+        ys = np.concatenate([r[:, 1], mid[:, 1]])
+        if not outer.contains_points(xs, ys).all():
+            return False
+    # … and no inner edge PROPERLY crosses the outer boundary (touching
+    # is allowed: within() permits shared boundary points)
+    return not _proper_boundary_crossing(inner, outer)

@@ -1,8 +1,9 @@
-"""GeoPackage (OGC GPKG) vector writer built on the stdlib sqlite3 module
-(the port's copy of the writer of ``obia_tpu/io/gpkg.py``):
-gpkg_contents / gpkg_geometry_columns / gpkg_spatial_ref_sys metadata
-tables plus the standard GeoPackage binary geometry blob (GP magic +
-envelope + WKB).
+"""GeoPackage (OGC GPKG) vector I/O built on the stdlib sqlite3 module
+(the port's copy of ``obia_tpu/io/gpkg.py``): gpkg_contents /
+gpkg_geometry_columns / gpkg_spatial_ref_sys metadata tables plus the
+standard GeoPackage binary geometry blob (GP magic + envelope + WKB).
+:func:`write_features` and :func:`read_gpkg` move plain lists, so neither
+needs pandas.
 """
 from __future__ import annotations
 
@@ -30,6 +31,16 @@ def _gp_header(srs_id: int, bounds: Tuple[float, float, float, float]) -> bytes:
 
 def encode_gpkg_geom(geom: Geometry, srs_id: int) -> bytes:
     return _gp_header(srs_id, geom.bounds) + wkb_mod.dumps(geom)
+
+
+def decode_gpkg_geom(blob: bytes) -> Geometry:
+    if blob[:2] != b"GP":
+        # bare WKB fallback
+        return wkb_mod.loads(blob)
+    flags = blob[3]
+    envelope_type = (flags >> 1) & 0b111
+    env_len = {0: 0, 1: 32, 2: 48, 3: 48, 4: 64}.get(envelope_type, 0)
+    return wkb_mod.loads(blob[8 + env_len:])
 
 
 def _ensure_meta_tables(conn: sqlite3.Connection) -> None:
@@ -198,5 +209,87 @@ def write_gpkg(path: str,
         conn.execute("INSERT OR REPLACE INTO gpkg_geometry_columns VALUES (?,?,?,?,?,?)",
                      (layer, "geom", geometry_type, srs_id, 0, 0))
         conn.commit()
+    finally:
+        conn.close()
+
+
+def write_features(path: str, columns: List[Tuple[str, Sequence]],
+                   geometries: Sequence[Geometry], layer: str,
+                   crs=None) -> None:
+    """One feature layer as ``GeoDataFrame.to_file`` writes it: no None
+    geometry, and the geometry type named when there is only one."""
+    if len(geometries) and any(g is None for g in geometries):
+        raise ValueError("None geometries — refusing to write empty blobs")
+    geom_types = {g.geom_type for g in geometries}
+    gtype = geom_types.pop() if len(geom_types) == 1 else "GEOMETRY"
+    write_gpkg(path, columns, list(geometries), layer=layer, crs=crs,
+               geometry_type=gtype.upper())
+
+
+def list_layers(path: str) -> List[str]:
+    conn = sqlite3.connect(path)
+    try:
+        cur = conn.execute(
+            "SELECT table_name FROM gpkg_contents WHERE data_type='features'")
+        return [r[0] for r in cur.fetchall()]
+    finally:
+        conn.close()
+
+
+def read_gpkg(path: str, layer: Optional[str] = None, bbox=None):
+    """Read a feature layer → (column_dict, geometries, crs), the columns
+    as plain lists. ``bbox`` (minx, miny, maxx, maxy) keeps only
+    intersecting features."""
+    conn = sqlite3.connect(path)
+    try:
+        if layer is None:
+            layers = list_layers(path)
+            if not layers:
+                raise ValueError(f"no feature layers in {path}")
+            layer = layers[0]
+        cur = conn.execute(
+            "SELECT column_name, srs_id FROM gpkg_geometry_columns WHERE table_name=?",
+            (layer,))
+        row = cur.fetchone()
+        geom_col, srs_id = (row if row else ("geom", 0))
+        crs = None
+        if srs_id and srs_id > 0:
+            # srs_id is only an EPSG code when the registry row says so —
+            # GDAL/QGIS write custom SRS ids (>= 100000) whose definition
+            # lives in gpkg_spatial_ref_sys
+            try:
+                reg = conn.execute(
+                    "SELECT organization, organization_coordsys_id, "
+                    "definition FROM gpkg_spatial_ref_sys WHERE srs_id=?",
+                    (srs_id,)).fetchone()
+            except sqlite3.Error:
+                reg = None
+            if reg and reg[0] and str(reg[0]).upper() == "EPSG" and reg[1]:
+                crs = CRS.from_epsg(int(reg[1]))
+            elif reg and reg[2] and reg[2].strip() not in ("", "undefined"):
+                crs = CRS.from_wkt(reg[2])
+            else:
+                crs = CRS.from_epsg(srs_id)
+
+        safe_layer = layer.replace('"', '""')
+        cur = conn.execute(f'SELECT * FROM "{safe_layer}"')
+        names = [d[0] for d in cur.description]
+        geom_idx = names.index(geom_col)
+        cols = {name: [] for i, name in enumerate(names)
+                if i != geom_idx and name != "fid"}
+        geoms = []
+        for rec in cur.fetchall():
+            blob = rec[geom_idx]
+            g = decode_gpkg_geom(blob) if blob is not None else None
+            if bbox is not None and g is not None:
+                b = g.bounds
+                if (b[2] < bbox[0] or bbox[2] < b[0]
+                        or b[3] < bbox[1] or bbox[3] < b[1]):
+                    continue
+            geoms.append(g)
+            for i, name in enumerate(names):
+                if i != geom_idx and name != "fid":
+                    cols[name].append(rec[i])
+        return cols, geoms, crs
     finally:
         conn.close()

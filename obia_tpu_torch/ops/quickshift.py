@@ -108,8 +108,8 @@ def quickshift_tree(image, ratio: float = 1.0, kernel_size: float = 5.0,
         from .color import rgb_to_lab
         img = rgb_to_lab(img)
     if sigma and sigma > 0:
-        raise NotImplementedError("quickshift sigma > 0 (pre-blur) is not "
-                                  "ported to obia_tpu_torch yet")
+        from .filters import gaussian_filter
+        img = gaussian_filter(img, float(sigma))
     H, W, _ = img.shape
     seed = random_seed if random_seed is not None else (
         rng if isinstance(rng, (int, np.integer)) else 42)

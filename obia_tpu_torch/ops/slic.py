@@ -249,8 +249,10 @@ def slic_dense(image: torch.Tensor, n_segments: int = 100,
         from .color import rgb_to_lab
         img = rgb_to_lab(img)
     if sigma and sigma > 0:
-        raise NotImplementedError("slic sigma > 0 (pre-blur) is not ported "
-                                  "to obia_tpu_torch yet")
+        # skimage pre-smooths each channel with scipy's gaussian_filter
+        # (reflect padding), after the colour conversion
+        from .filters import gaussian_filter
+        img = gaussian_filter(img, float(sigma))
     spacing_yx = None
     if spacing is not None:
         spacing_yx = (float(spacing[0]), float(spacing[1]))

@@ -77,6 +77,19 @@ class SegmentLayer:
             self._geometry = self._geometry.result()
         return self._geometry
 
+    def to_file(self, path: str, layer: str = "segments") -> None:
+        """Write ``segment_id`` and the geometry as a GeoPackage layer."""
+        from ..io.gpkg import write_features
+        write_features(path, [("segment_id", self.segment_id)],
+                       self.geometry, layer, self.crs)
+
+    def to_geodataframe(self):
+        """:class:`obia_tpu_torch.vector.geodataframe.GeoDataFrame` of
+        ``segment_id`` and the geometry (imports pandas)."""
+        from ..vector.geodataframe import GeoDataFrame
+        return GeoDataFrame({"segment_id": self.segment_id},
+                            geometry=self.geometry, crs=self.crs)
+
 
 def _polygonize(label_raster, n_labels: int, affine) -> List:
     """World-space geometry per label 0..n-1 (Polygon, or MultiPolygon for a

@@ -1,7 +1,8 @@
 """GeoDataFrame: a pandas DataFrame with a geometry column + CRS (the
 port's copy of ``obia_tpu/vector/geodataframe.py``, trimmed to
-construction, the ``intersects`` predicate, the GeoPackage writer and
-``sjoin``, which ``label_segments`` joins labelled points with).
+construction, the ``intersects``, ``within`` and ``overlaps`` predicates,
+the GeoPackage writer and reader (:func:`read_file`), and ``sjoin``, which
+``label_segments`` joins labelled points with).
 
 This module imports pandas, which the card's machine need not have: the
 port imports it only inside ``ObjectTable.to_geodataframe``, at the API
@@ -73,6 +74,14 @@ class GeoDataFrame(pd.DataFrame):
                 out.append(g.intersects(other))
         return pd.Series(out, index=self.index)
 
+    def within(self, other: Geometry) -> pd.Series:
+        return pd.Series([g.within(other) if g is not None else False
+                          for g in self.geometry], index=self.index)
+
+    def overlaps(self, other: Geometry) -> pd.Series:
+        return pd.Series([g.overlaps(other) if g is not None else False
+                          for g in self.geometry], index=self.index)
+
     # -- I/O ------------------------------------------------------------------
     def to_file(self, path: str, driver: Optional[str] = None,
                 layer: Optional[str] = None) -> None:
@@ -81,21 +90,26 @@ class GeoDataFrame(pd.DataFrame):
             driver = "GPKG"
         if driver != "GPKG":
             raise ValueError(f"only GPKG output is supported, got {driver}")
-        if len(self) and any(g is None for g in self.geometry):
-            raise ValueError(
-                "GeoDataFrame has None geometries — refusing to write "
-                "empty blobs")
         cols = [(c, self[c].tolist()) for c in self.columns if c != "geometry"]
-        layer = layer or _layer_from_path(path)
-        geom_types = {g.geom_type for g in self.geometry if g is not None}
-        gtype = geom_types.pop() if len(geom_types) == 1 else "GEOMETRY"
-        gpkg_io.write_gpkg(path, cols, list(self.geometry), layer=layer,
-                           crs=self.crs, geometry_type=gtype.upper())
+        gpkg_io.write_features(path, cols, list(self.geometry),
+                               layer or _layer_from_path(path), self.crs)
 
 
 def _layer_from_path(path: str) -> str:
     import os
     return os.path.splitext(os.path.basename(path))[0] or "layer"
+
+
+def read_file(path: str, layer: Optional[str] = None,
+              bbox=None) -> GeoDataFrame:
+    """Read a GeoPackage layer (the one input format the port has)."""
+    if str(path).lower().endswith((".geojson", ".json", ".shp")):
+        raise ValueError(f"only GPKG input is supported, got {path}")
+    cols, geoms, crs = gpkg_io.read_gpkg(path, layer=layer, bbox=bbox)
+    gdf = GeoDataFrame(cols if cols else None, geometry=geoms, crs=crs)
+    if "geometry" not in gdf.columns:
+        gdf["geometry"] = geoms
+    return gdf
 
 
 # --- spatial join -------------------------------------------------------------

@@ -83,6 +83,18 @@ def _run_classify(device):
                     **device)
 
 
+def _run_tiled(device):
+    import tempfile
+
+    from obia_tpu_torch.io.tiff import write_tiff
+    from obia_tpu_torch.utils.tiling import create_tiled_segments
+    with tempfile.TemporaryDirectory() as d:
+        write_tiff(f"{d}/s.tif", (_image().img_data).astype(np.uint8),
+                   transform=Affine(1, 0, 0, 0, -1, 24), crs="EPSG:32633")
+        return create_tiled_segments(f"{d}/s.tif", f"{d}/out", tile_size=16,
+                                     buffer=4, n_segments=3, **device)
+
+
 def _quickshift_image():
     return np.random.default_rng(3).random((12, 14, 3)).astype(np.float32)
 
@@ -104,6 +116,7 @@ ENTRY_POINTS = {
         _flax_params(), [0, 1], (4,), **device).predict_proba(np.ones((2, 3))),
     "make_mesh": _run_make_mesh,
     "classify": _run_classify,
+    "create_tiled_segments": _run_tiled,
     "quickshift": lambda device: tqs.quickshift(
         _quickshift_image(), kernel_size=1, max_dist=3, **device),
     "quickshift_tree": lambda device: tqs.quickshift_tree(

@@ -2,8 +2,9 @@
 ``obia_tpu`` unavailable, as on a machine that has only torch, numpy and
 scipy: the port imports none of them on its main paths (SLIC + forest,
 quickshift + MLP, ``classify`` with the MLP and Kernel SHAP on object
-tables, the sharded mosaic on a 2 x 4 CPU mesh), and never loads jax, flax
-or optax. Its sources and ``chip_smoke.py`` import neither jax
+tables, the sharded mosaic on a 2 x 4 CPU mesh, tiled segmentation with the
+``sigma`` pre-blur), and never loads jax, flax, optax or click (the CLI
+module imports without it). Its sources and ``chip_smoke.py`` import neither jax
 nor ``obia_tpu``."""
 import subprocess
 import sys
@@ -16,7 +17,7 @@ SCRIPT = textwrap.dedent("""
     import builtins
     import sys
     BLOCKED = ("jax", "jaxlib", "pandas", "sklearn", "PIL", "flax", "optax",
-               "obia_tpu")
+               "obia_tpu", "click")
     real_import = builtins.__import__
 
     def blocked(name, *a, **k):
@@ -85,6 +86,21 @@ SCRIPT = textwrap.dedent("""
                          objects_kwargs={"glcm_levels": 32})
     assert len(tm) > 3 and len(tm.geometry) == len(tm)
     assert np.isfinite(tm["b0_mean"]).all()
+
+    import os
+    import obia_tpu_torch.checkpoint
+    import obia_tpu_torch.cli
+    from obia_tpu_torch.io.gpkg import read_gpkg
+    from obia_tpu_torch.io.tiff import write_tiff
+    from obia_tpu_torch.utils.tiling import create_tiled_segments
+    write_tiff("scene.tif", arr[:, :, :3], transform=Affine(1, 0, 0, 0, -1, 64),
+               crs="EPSG:32633")
+    tiled = create_tiled_segments("scene.tif", "tiled", tile_size=32,
+                                  buffer=8, n_segments=6, sigma=1.0,
+                                  device="cpu")
+    cols, geoms, _ = read_gpkg(os.path.join("tiled", "segments.gpkg"))
+    assert len(tiled) > 3 and cols["segment_id"] == list(
+        range(1, len(tiled) + 1)) and len(geoms) == len(tiled)
     for mod in BLOCKED:
         assert mod not in sys.modules, mod
     print("NO_JAX_OK", len(t), f, len(tq), len(tm))

@@ -156,9 +156,17 @@ def test_tie_noise_is_seeded_and_device_independent():
 
 
 def test_sigma_not_ported():
-    with pytest.raises(NotImplementedError, match="sigma"):
-        tqs.quickshift(np.zeros((8, 8, 3), np.float32), sigma=1.0,
-                       device="cpu")
+    """``sigma > 0`` (once not ported, and raising) pre-blurs the image
+    with ``ops.filters.gaussian_filter`` before the density; the JAX
+    comparison is in tests/test_torch_filters.py."""
+    from obia_tpu_torch.ops.filters import gaussian_filter
+    img = np.random.default_rng(4).random((20, 24, 3)).astype(np.float32)
+    kw = dict(kernel_size=1.5, max_dist=4.0, convert2lab=False,
+              device="cpu")
+    got = tqs.quickshift(img, sigma=1.0, **kw)
+    want = tqs.quickshift(gaussian_filter(torch.from_numpy(img), 1.0), **kw)
+    assert torch.equal(got, want)
+    assert not torch.equal(got, tqs.quickshift(img, **kw))
 
 
 def test_cpu_tensor_takes_twin_and_counts_no_launch():
