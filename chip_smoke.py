@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Smoke run of obia_tpu_torch on one NVIDIA GPU: build, check, drive.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--seed N]
 
-Phases, in order; any failure raises and exits non-zero:
+``--seed`` (default 0) seeds the canopy phase's scene. Phases, in order;
+any failure raises and exits non-zero:
 
 1. require a CUDA device and print its name and power limit (nvidia-smi);
 2. build the CUDA kernels from ``obia_tpu_torch/csrc`` with nvcc, one
@@ -109,7 +110,21 @@ Phases, in order; any failure raises and exits non-zero:
    on >= 99.5% of the pixels; then the card's run resumed
    (``resume=True``), which must segment no tile and give the same count
    (resumed here and not at 2048^2, where pass 2's host predicates would
-   add ~3 minutes to the script).
+   add ~3 minutes to the script);
+16. drive the canopy seed workflow at 2048^2 (a 4.2 km^2 plot at 1 m,
+   ~10.5 k crowns; ``canopy_rasters``) on the card, once cold, once warm
+   and once with the stage times synced: ``make_chm_seeds`` (defaults),
+   ``make_density_seeds(d_min=4.5, min_dist_px=4, gauss_sigma=2)``,
+   ``make_cost_surface`` with the port's SLIC layer written in EPSG:4326
+   and weights (0.4, 0.2, 0.2, 0.2), ``make_canonical_seeds`` (defaults,
+   its distance matrix on the card); checks: stage 1 holds 15-25 k seeds,
+   the cost raster in [0, 1] with its nodata, the canonical layer read
+   back; then ``local_entropy`` alone, timed with CUDA events;
+17. cross-check: the canopy workflow at 512^2 on the card and on the CPU
+   on the same files: peak sets and canonical rows equal, cost rasters
+   within atol 1e-6 with equal nodata, the distance matrix within rtol
+   1e-6, DBSCAN labels equal (a pair within 1e-6 of eps excepted, and
+   printed).
 
 After the build a line gives the quickshift kernels' registers, spilled
 bytes and pixels a thread (P) as the library reports them. The last two
@@ -163,6 +178,9 @@ C5_SHARDS = 8           # the 2 x 4 mesh
 C3_SIZE = 2048          # bench.py's default run of config 3
 C3_CROSS_SIZE = 1024
 C3_KW = dict(tile_size=512, buffer=64, n_segments=700)
+CANOPY_SIZE = 2048      # a 4.2 km^2 plot at 1 m
+CANOPY_CROSS_SIZE = 512
+CANOPY_PITCH = 20       # px between crown centres: ~10.5 k crowns at 2048^2
 HBM_BYTES_PER_MS = 3.35e9   # H100 SXM: 3.35 TB/s
 FP32_OPS_PER_MS = 67e9      # H100 SXM: 67 TFLOP/s float32 outside the MMAs
 SFU_OPS_PER_MS = 132 * 16 * 1.98e6  # 132 SMs x 16 exponentials a clock
@@ -1156,6 +1174,225 @@ def config3_cross_check(size: int, root: str) -> None:
         raise AssertionError("the resumed run segmented a tile")
 
 
+def canopy_rasters(size: int, seed: int = 0):
+    """A plot of tree crowns at 1 m: (CHM float32 with NaN nodata,
+    density float32, 8-band WorldView-3-like uint16 stack with 0 nodata).
+    Crowns sit on a jittered grid of pitch ``CANOPY_PITCH`` px, heights
+    5-35 m, radii 3-8 px; the CHM is the tallest crown at each pixel, the
+    density the sum of the crowns' kernels; a hole and a 3-px border are
+    nodata in the CHM, another hole in the stack."""
+    rng = np.random.default_rng(seed)
+    g = np.arange(CANOPY_PITCH // 2, size, CANOPY_PITCH, dtype=np.float64)
+    cy, cx = (a.ravel() for a in np.meshgrid(g, g, indexing="ij"))
+    jit = CANOPY_PITCH / 4
+    cy = cy + rng.uniform(-jit, jit, cy.size)
+    cx = cx + rng.uniform(-jit, jit, cx.size)
+    height = rng.uniform(5.0, 35.0, cy.size)
+    radius = rng.uniform(3.0, 8.0, cy.size)
+    chm = np.zeros((size, size), np.float32)
+    den = np.zeros((size, size), np.float32)
+    for y, x, h, r in zip(cy, cx, height, radius):
+        reach = int(3 * r) + 1
+        r0, r1 = max(0, int(y) - reach), min(size, int(y) + reach + 1)
+        c0, c1 = max(0, int(x) - reach), min(size, int(x) + reach + 1)
+        yy, xx = np.mgrid[r0:r1, c0:c1]
+        k = np.exp(-((yy - y) ** 2 + (xx - x) ** 2) / (2 * r * r))
+        np.maximum(chm[r0:r1, c0:c1], (h * k).astype(np.float32),
+                   out=chm[r0:r1, c0:c1])
+        den[r0:r1, c0:c1] += (10.0 * k).astype(np.float32)
+    chm += rng.normal(0, 0.05, chm.shape).astype(np.float32)
+    chm = np.maximum(chm, 0)
+    hole = slice(size // 4, size // 4 + size // 16)
+    chm[hole, hole] = np.nan
+    chm[:3], chm[-3:], chm[:, :3], chm[:, -3:] = (np.nan,) * 4
+    veg = np.clip(np.nan_to_num(chm) / 35.0, 0, 1)
+    wv3 = np.empty((size, size, 8), np.uint16)
+    for b, (soil, leaf) in enumerate(((300, 250), (350, 300), (450, 500),
+                                      (500, 450), (600, 200), (900, 1900),
+                                      (1000, 3200), (950, 3000))):
+        band = soil + (leaf - soil) * veg + rng.normal(0, 20, veg.shape)
+        wv3[:, :, b] = np.clip(band, 1, 65535).astype(np.uint16)
+    far = slice(size // 2, size // 2 + size // 32)
+    wv3[far, far] = 0
+    return chm, den, wv3
+
+
+def write_canopy_inputs(root: str, size: int, seed: int, device: str,
+                        n_segments: int = 3000) -> dict:
+    """The canopy workflow's inputs at size^2 in EPSG:32633, written with
+    the port's own writers: chm.tif and density.tif (float32, -9999
+    nodata), wv3.tif (uint16, 0 nodata) and slic.gpkg, the port's SLIC
+    segments of the stack (``create_segments`` on ``device``) reprojected
+    to EPSG:4326. Returns their paths."""
+    from obia_tpu_torch.geometry.affine import Affine
+    from obia_tpu_torch.geometry.transform_crs import (Transformer,
+                                                       transform_geom)
+    from obia_tpu_torch.handlers.geotif import image_from_array
+    from obia_tpu_torch.io.gpkg import write_features
+    from obia_tpu_torch.io.tiff import write_tiff
+    from obia_tpu_torch.segmentation.segment_boundaries import \
+        create_segments
+    chm, den, wv3 = canopy_rasters(size, seed)
+    t = Affine(1.0, 0.0, 500000.0, 0.0, -1.0, 5100000.0)
+    paths = {k: os.path.join(root, f"{k}.tif") for k in ("chm", "density",
+                                                        "wv3")}
+    write_tiff(paths["chm"], np.where(np.isnan(chm), -9999.0, chm).astype(
+        np.float32), transform=t, crs="EPSG:32633", nodata=-9999.0,
+        compression="none")
+    write_tiff(paths["density"], den, transform=t, crs="EPSG:32633",
+               nodata=-9999.0, compression="none")
+    write_tiff(paths["wv3"], wv3, transform=t, crs="EPSG:32633", nodata=0,
+               compression="none")
+    layer = create_segments(image_from_array(wv3, t, crs="EPSG:32633"),
+                            segmentation_bands=[4, 6, 2],
+                            n_segments=n_segments, device=device)
+    tr = Transformer.from_crs(32633, 4326, always_xy=True)
+    paths["slic"] = os.path.join(root, "slic.gpkg")
+    write_features(paths["slic"], [("segment_id", layer.segment_id)],
+                   [transform_geom(g, tr) for g in layer.geometry],
+                   "slic", "EPSG:4326")
+    return paths
+
+
+def run_canopy(paths: dict, out_dir: str, device: str):
+    """The canopy workflow on ``device``, each call as a user makes it:
+    ``make_chm_seeds`` (defaults), ``make_density_seeds(d_min=4.5,
+    min_dist_px=4, gauss_sigma=2)``, ``make_cost_surface`` with the SLIC
+    layer and weights (0.4, 0.2, 0.2, 0.2), ``make_canonical_seeds``
+    (defaults), synchronised. Returns (canonical table, output paths,
+    seconds)."""
+    import torch
+
+    from obia_tpu_torch.utils.cost import make_cost_surface
+    from obia_tpu_torch.utils.seeds import (make_canonical_seeds,
+                                            make_chm_seeds,
+                                            make_density_seeds)
+    os.makedirs(out_dir, exist_ok=True)
+    out = {k: os.path.join(out_dir, k) for k in (
+        "chm_seeds.gpkg", "den_seeds.gpkg", "cost.tif", "canonical.gpkg")}
+    t0 = time.perf_counter()
+    make_chm_seeds(paths["chm"], out["chm_seeds.gpkg"], device=device)
+    make_density_seeds(paths["density"], out["den_seeds.gpkg"], d_min=4.5,
+                       min_dist_px=4, gauss_sigma=2, device=device)
+    make_cost_surface(paths["wv3"], paths["chm"], out["cost.tif"],
+                      slic=paths["slic"], weights=(0.4, 0.2, 0.2, 0.2),
+                      device=device)
+    table = make_canonical_seeds(out["chm_seeds.gpkg"], out["den_seeds.gpkg"],
+                                 paths["chm"], out["cost.tif"],
+                                 out["canonical.gpkg"], device=device)
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+    return table, out, time.perf_counter() - t0
+
+
+def canopy_outputs(out: dict):
+    """(stage-1 seed coordinates, cost raster and its reader, canonical
+    rows) of a canopy run, read back from its files."""
+    from obia_tpu_torch.io.gpkg import read_gpkg
+    from obia_tpu_torch.io.tiff import TiffReader
+    xy = [(g.x, g.y) for name in ("chm_seeds.gpkg", "den_seeds.gpkg")
+          for g in read_gpkg(out[name])[1]]
+    reader = TiffReader(out["cost.tif"])
+    cols, geoms, _ = read_gpkg(out["canonical.gpkg"],
+                               layer="canonical_seeds")
+    rows = list(zip(*cols.values(), [(g.x, g.y) for g in geoms]))
+    return np.array(xy), reader.read()[:, :, 0], reader, rows
+
+
+def canopy_phase(size: int, root: str, seed: int, card: str) -> None:
+    """The canopy workflow at size^2 on the card, cold, warm and profiled
+    (stage times synced), with its outputs checked, and ``local_entropy``
+    timed alone."""
+    import torch
+
+    from obia_tpu_torch import telemetry
+    from obia_tpu_torch.ops.filters import disk_footprint, local_entropy
+    t0 = time.perf_counter()
+    paths = write_canopy_inputs(root, size, seed, "cuda")
+    log(f"canopy {size}^2 inputs (CHM, density, 8-band stack, SLIC layer "
+        f"in EPSG:4326) written in {time.perf_counter() - t0:.1f} s")
+    _, _, cold = run_canopy(paths, os.path.join(root, "cold"), "cuda")
+    torch.cuda.reset_peak_memory_stats()
+    table, out, warm = run_canopy(paths, os.path.join(root, "warm"), "cuda")
+    peak = torch.cuda.max_memory_allocated()
+    telemetry.reset()
+    telemetry.enable(True)
+    try:
+        _, _, profiled_s = run_canopy(paths, os.path.join(root, "profiled"),
+                                      "cuda")
+    finally:
+        telemetry.enable(False)
+    xy, cost, reader, rows = canopy_outputs(out)
+    n = len(xy)
+    log(f"canopy {size}^2 (seed {seed}): stage-1 seeds n = {n}, D "
+        f"{n * n * 4:,} bytes ({n} x {n} float32), canonical seeds "
+        f"{len(table)} in {len(set(table['cluster']))} clusters; cold "
+        f"{cold:.3f} s, warm {warm:.3f} s, profiled {profiled_s:.3f} s; "
+        f"peak device memory {peak / 2**30:.2f} GiB ({card})")
+    for name, r in sorted(telemetry.report().items()):
+        log(f"  stage {name}: {1000 * r['total_s']:.1f} ms in {r['count']} "
+            f"calls")
+    if not 15000 <= n <= 25000:
+        raise AssertionError(f"stage 1 holds {n} seeds, not 15-25 k")
+    nodata = cost == -9999.0
+    if not (nodata.any() and (~nodata).mean() > 0.9
+            and np.isfinite(cost).all()
+            and 0 <= cost[~nodata].min() and cost[~nodata].max() <= 1):
+        raise AssertionError("cost raster outside [0, 1] or nodata wrong")
+    if (len(rows) != len(table) or not 0 < len(table) <= n
+            or [r[0] for r in rows] != list(range(len(rows)))):
+        raise AssertionError("canonical_seeds layer does not match its run")
+    q = torch.as_tensor(np.random.default_rng(seed).integers(
+        0, 256, (size, size), dtype=np.uint8), device="cuda")
+    ms = time_ms(lambda: local_entropy(q, disk_footprint(3)), 3)
+    log(f"  local_entropy alone at {size}^2 (256 levels x 29 taps, "
+        f"~{256 * 33} launches): {ms:.1f} ms (CUDA events, {card})")
+
+
+def canopy_cross_check(size: int, root: str, seed: int) -> None:
+    """The canopy workflow at size^2 on the card and on the CPU, on the
+    same input files: peak sets and canonical tables equal, cost rasters
+    within atol 1e-6 with equal nodata, D within rtol 1e-6, and the DBSCAN
+    labels equal (a difference is allowed only for a pair within 1e-6 of
+    eps relative to eps, which is printed)."""
+    import torch
+
+    from obia_tpu_torch.utils.seeds import dbscan_labels, distance_matrix
+    paths = write_canopy_inputs(root, size, seed, "cuda")
+    res = {}
+    for device in ("cuda", "cpu"):
+        _, out, s = run_canopy(paths, os.path.join(root, device), device)
+        res[device] = canopy_outputs(out) + (s,)
+    (xy_g, cost_g, reader, rows_g, s_g), (xy_c, cost_c, _, rows_c, s_c) = \
+        res["cuda"], res["cpu"]
+    same_peaks = np.array_equal(xy_g, xy_c)
+    cost_err = float(np.abs(cost_g - cost_c).max())
+    same_nodata = np.array_equal(cost_g == -9999.0, cost_c == -9999.0)
+    cost_in = np.where(cost_c == -9999.0, 1.0, cost_c)
+    args = (xy_c[:, 0], xy_c[:, 1], cost_in, reader.transform, 0.5, 0.8, 12)
+    d_g = distance_matrix(*args, device="cuda")
+    d_c = distance_matrix(*args, device="cpu")
+    d_err = float((d_g.cpu() - d_c).abs().max())
+    d_ok = torch.allclose(d_g.cpu(), d_c, rtol=1e-6, atol=0)
+    lab_g, lab_c = dbscan_labels(d_g, 1.5), dbscan_labels(d_c, 1.5)
+    labels_ok = np.array_equal(lab_g, lab_c)
+    if not labels_ok:
+        near = torch.nonzero((d_c - 1.5).abs() <= 1.5e-6)
+        log(f"  DBSCAN labels differ; pairs within 1e-6 of eps: "
+            f"{near.tolist()}")
+        labels_ok = len(near) > 0
+    log(f"cross-check canopy {size}^2: {len(xy_g)} stage-1 seeds on the "
+        f"card ({s_g:.3f} s), {len(xy_c)} on the CPU ({s_c:.3f} s); peak "
+        f"sets equal {same_peaks}; cost max |diff| {cost_err:.3g}, nodata "
+        f"equal {same_nodata}; D max |diff| {d_err:.3g} (rtol 1e-6: {d_ok}),"
+        f" D bitwise {bool(torch.equal(d_g.cpu(), d_c))}; DBSCAN labels "
+        f"equal {np.array_equal(lab_g, lab_c)}; canonical tables equal "
+        f"{rows_g == rows_c} ({len(rows_g)} rows)")
+    if not (same_peaks and cost_err <= 1e-6 and same_nodata and d_ok
+            and labels_ok and rows_g == rows_c):
+        raise AssertionError("canopy card vs CPU outside its bars")
+
+
 def qs_scenes():
     """(C, H, W) edge-case scenes for the quickshift kernels."""
     rng = np.random.default_rng(11)
@@ -1308,7 +1545,13 @@ def profiled(run, image, what: str):
 
 
 def main() -> None:
+    import argparse
+
     import torch
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--seed", type=int, default=0,
+                        help="seed of the canopy phase's scene")
+    seed = parser.parse_args().seed
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda."
                          "is_available() is False)")
@@ -1596,6 +1839,14 @@ def main() -> None:
     try:
         config3_phase(C3_SIZE, root, card)
         config3_cross_check(C3_CROSS_SIZE, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    # -- 16-17. the canopy seed and cost-surface workflow, then card vs CPU --
+    root = tempfile.mkdtemp(prefix="obia_canopy_")
+    try:
+        canopy_phase(CANOPY_SIZE, root, seed, card)
+        canopy_cross_check(CANOPY_CROSS_SIZE, root, seed)
     finally:
         shutil.rmtree(root, ignore_errors=True)
 

@@ -1,9 +1,10 @@
 """Command-line interface (port of ``obia_tpu/cli.py``): ``segment``,
-``tiled-segments`` and ``info``, runnable as ``obia-tpu-torch <command>``.
+``tiled-segments``, ``chm-seeds``, ``density-seeds``, ``canonical-seeds``,
+``cost-surface`` and ``info``, runnable as ``obia-tpu-torch <command>``.
 
 ``click`` is imported by :func:`build_cli`, not with the module, so the
-module imports where click is not installed. ``segment`` and
-``tiled-segments`` run on the card unless given ``--device cpu``.
+module imports where click is not installed. Every command but ``info``
+runs on the card unless given ``--device cpu``.
 """
 from __future__ import annotations
 
@@ -70,6 +71,68 @@ def build_cli():
                                     device=device, **kwargs)
         click.echo(f"wrote {len(out):,} segments -> "
                    f"{output_dir}/segments.gpkg")
+
+    @main.command("chm-seeds")
+    @click.argument("chm", type=click.Path(exists=True))
+    @click.argument("out_gpkg", type=click.Path())
+    @click.option("--h-min", default=2.5, show_default=True)
+    @click.option("--min-dist-px", default=3, show_default=True)
+    @click.option("--sigma", default=1.0, show_default=True)
+    @click.option("--device", default=None,
+                  help="torch device (default: the card)")
+    def chm_seeds_cmd(chm, out_gpkg, h_min, min_dist_px, sigma, device):
+        """Canopy-height-model peak seeds."""
+        from .utils.seeds import make_chm_seeds
+        make_chm_seeds(chm, out_gpkg, h_min_m=h_min, min_dist_px=min_dist_px,
+                       gauss_sigma=sigma, device=device)
+
+    @main.command("density-seeds")
+    @click.argument("density", type=click.Path(exists=True))
+    @click.argument("out_gpkg", type=click.Path())
+    @click.option("--d-min", default=4.5, show_default=True)
+    @click.option("--min-dist-px", default=4, show_default=True)
+    @click.option("--sigma", default=2.0, show_default=True)
+    @click.option("--device", default=None,
+                  help="torch device (default: the card)")
+    def density_seeds_cmd(density, out_gpkg, d_min, min_dist_px, sigma,
+                          device):
+        """Density-raster peak seeds."""
+        from .utils.seeds import make_density_seeds
+        make_density_seeds(density, out_gpkg, d_min=d_min,
+                           min_dist_px=min_dist_px, gauss_sigma=sigma,
+                           device=device)
+
+    @main.command("canonical-seeds")
+    @click.argument("chm_seeds", type=click.Path(exists=True))
+    @click.argument("den_seeds", type=click.Path(exists=True))
+    @click.argument("chm", type=click.Path(exists=True))
+    @click.argument("cost_surface", type=click.Path(exists=True))
+    @click.argument("out_gpkg", type=click.Path())
+    @click.option("--merge-radius", default=1.5, show_default=True)
+    @click.option("--cost-weight", default=0.5, show_default=True)
+    @click.option("--device", default=None,
+                  help="torch device (default: the card)")
+    def canonical_seeds_cmd(chm_seeds, den_seeds, chm, cost_surface,
+                            out_gpkg, merge_radius, cost_weight, device):
+        """Merge CHM + density seeds into canonical seed points."""
+        from .utils.seeds import make_canonical_seeds
+        make_canonical_seeds(chm_seeds, den_seeds, chm, cost_surface,
+                             out_gpkg, merge_radius=merge_radius,
+                             cost_weight=cost_weight, device=device)
+
+    @main.command("cost-surface")
+    @click.argument("wv3", type=click.Path(exists=True))
+    @click.argument("chm", type=click.Path(exists=True))
+    @click.argument("out", type=click.Path())
+    @click.option("--slic", default=None, type=click.Path(exists=True))
+    @click.option("--weights", default="0.5,0.25,0.25,0", show_default=True)
+    @click.option("--device", default=None,
+                  help="torch device (default: the card)")
+    def cost_cmd(wv3, chm, out, slic, weights, device):
+        """Weighted cost surface from CHM gradient + NDVI gap + entropy."""
+        from .utils.cost import make_cost_surface
+        w = tuple(float(x) for x in weights.split(","))
+        make_cost_surface(wv3, chm, out, slic=slic, weights=w, device=device)
 
     @main.command("info")
     def info_cmd():

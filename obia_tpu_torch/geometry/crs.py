@@ -4,8 +4,8 @@
 The reference delegates CRS work to pyproj/rasterio (reference
 segment_boundaries.py:74-76 does ``pyproj.CRS(image.crs).to_epsg()``); this
 framework stores the EPSG code directly and synthesises WKT for the GeoPackage
-``gpkg_spatial_ref_sys`` table. No reprojection is needed anywhere in the
-reference API, so none is provided here.
+``gpkg_spatial_ref_sys`` table. Reprojection between the CRS the port
+supports is :mod:`obia_tpu_torch.geometry.transform_crs`.
 """
 from __future__ import annotations
 

@@ -4,7 +4,9 @@
 The polygoniser builds a :class:`Polygon` per ring group (holes assigned by
 point-in-polygon) or a :class:`MultiPolygon` for a region pinched at a
 corner; the GeoPackage writer reads ``bounds``, ``is_empty`` and
-``geom_type``, and callers read ``area`` and ``centroid``. Labelled points
+``geom_type``, and callers read ``area`` and ``centroid``. The GeoJSON and
+shapefile codecs and the CRS transforms also carry :class:`LineString`s,
+which take no part in the predicates. Labelled points
 (:class:`Point`) and ``intersects`` serve ``label_segments`` and the
 acceptable-classes mask of ``classify``; ``within``, ``contains`` and
 ``overlaps`` (shapely's semantics) and :func:`affine_transform` serve the
@@ -18,7 +20,7 @@ import numpy as np
 
 
 class Geometry:
-    """Base class. Subclasses: Point, Polygon, MultiPolygon."""
+    """Base class. Subclasses: Point, LineString, Polygon, MultiPolygon."""
 
     geom_type = "Geometry"
 
@@ -74,6 +76,36 @@ class Point(Geometry):
     def bounds(self):
         return (self.x, self.y, self.x, self.y)
 
+    @property
+    def coords(self):
+        return [(self.x, self.y)]
+
+
+class LineString(Geometry):
+    geom_type = "LineString"
+    __slots__ = ("coords_array",)
+
+    def __init__(self, coords):
+        self.coords_array = np.asarray(coords, dtype=np.float64).reshape(-1, 2)
+
+    @property
+    def coords(self):
+        return [tuple(c) for c in self.coords_array]
+
+    @property
+    def bounds(self):
+        c = self.coords_array
+        return (c[:, 0].min(), c[:, 1].min(), c[:, 0].max(), c[:, 1].max())
+
+    @property
+    def length(self) -> float:
+        d = np.diff(self.coords_array, axis=0)
+        return float(np.hypot(d[:, 0], d[:, 1]).sum())
+
+    @property
+    def area(self) -> float:
+        return 0.0
+
 
 class _Ring:
     """Closed ring of coordinates (first == last)."""
@@ -90,6 +122,10 @@ class _Ring:
                   or arr.item(1) != arr.item(2 * n - 1)):
             arr = np.vstack([arr, arr[:1]])
         self.coords_array = arr
+
+    @property
+    def coords(self):
+        return [tuple(c) for c in self.coords_array]
 
     def signed_area(self) -> float:
         c = self.coords_array
@@ -232,6 +268,8 @@ def affine_transform(geom: Geometry, matrix: Sequence[float]) -> Geometry:
     if isinstance(geom, Point):
         x, y = tx(np.array([[geom.x, geom.y]]))[0]
         return Point(x, y)
+    if isinstance(geom, LineString):
+        return LineString(tx(geom.coords_array))
     if isinstance(geom, Polygon):
         return Polygon(tx(geom.exterior.coords_array),
                        [tx(h.coords_array) for h in geom.interiors])
@@ -316,8 +354,8 @@ def _segments_intersect(p1, p2, p3, p4) -> bool:
 
 def _rings_of(geom: Geometry) -> List[np.ndarray]:
     """The polygon rings of ``geom`` with at least 2 points (empty
-    geometries have no boundary): the reference's ``_paths_of``, which
-    differs only for the LineStrings that the port has no type for."""
+    geometries have no boundary): the reference's ``_paths_of`` without
+    its LineString paths, which the port's predicates do not take."""
     if isinstance(geom, Polygon):
         rings = [geom.exterior.coords_array] + [h.coords_array
                                                 for h in geom.interiors]

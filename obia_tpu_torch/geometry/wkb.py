@@ -1,7 +1,7 @@
 """Well-Known-Binary encode/decode (the port's copy of
-``obia_tpu/geometry/wkb.py``): ISO WKB Point, Polygon and MultiPolygon,
-little-endian on write, either endianness on read, for GeoPackage feature
-blobs."""
+``obia_tpu/geometry/wkb.py``): ISO WKB Point, LineString, Polygon and
+MultiPolygon, little-endian on write, either endianness on read, for
+GeoPackage feature blobs."""
 from __future__ import annotations
 
 import struct
@@ -9,9 +9,10 @@ from typing import Tuple
 
 import numpy as np
 
-from .geom import Geometry, MultiPolygon, Point, Polygon
+from .geom import Geometry, LineString, MultiPolygon, Point, Polygon
 
 WKB_POINT = 1
+WKB_LINESTRING = 2
 WKB_POLYGON = 3
 WKB_MULTIPOLYGON = 6
 
@@ -26,6 +27,10 @@ def _write_geom(out: bytearray, geom: Geometry) -> None:
     out += b"\x01"  # little-endian
     if isinstance(geom, Point):
         out += struct.pack("<I2d", WKB_POINT, geom.x, geom.y)
+    elif isinstance(geom, LineString):
+        c = geom.coords_array
+        out += struct.pack("<II", WKB_LINESTRING, len(c))
+        out += np.ascontiguousarray(c, dtype="<f8").tobytes()
     elif isinstance(geom, Polygon):
         rings = [geom.exterior.coords_array] + [h.coords_array for h in geom.interiors]
         rings = [r for r in rings if len(r)]
@@ -72,6 +77,11 @@ def _read_geom(buf: bytes, pos: int) -> Tuple[Geometry, int]:
     if base == WKB_POINT:
         c, pos = read_coords(1, pos)
         return Point(c[0, 0], c[0, 1]), pos
+    if base == WKB_LINESTRING:
+        (n,) = struct.unpack_from(bo + "I", buf, pos)
+        pos += 4
+        c, pos = read_coords(n, pos)
+        return LineString(c), pos
     if base == WKB_POLYGON:
         (nrings,) = struct.unpack_from(bo + "I", buf, pos)
         pos += 4

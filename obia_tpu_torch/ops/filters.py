@@ -2,7 +2,9 @@
 
 The scipy.ndimage / skimage.rank filters the reference's callers use:
 ``gaussian_filter``, ``maximum_filter``, ``uniform_filter``, ``sobel``,
-``disk_footprint``, ``local_entropy`` and ``laplacian_3x3``. Each runs on
+``disk_footprint``, ``local_entropy`` and ``laplacian_3x3``, with the
+reference's ``hypot`` (and the fused multiply-add it is built from) for
+gradient magnitudes and distances. Each runs on
 its tensor's device and filters the first two dimensions (trailing
 dimensions, such as channels, are filtered independently).
 
@@ -154,25 +156,103 @@ def disk_footprint(radius: int) -> np.ndarray:
     return (x * x + y * y <= radius * radius).astype(np.float32)
 
 
+# Cephes' float32 log polynomial, as XLA's CPU backend emits it
+_LOG_P = np.array([7.0376836292E-2, -1.1514610310E-1, 1.1676998740E-1,
+                   -1.2420140846E-1, 1.4249322787E-1, -1.6668057665E-1,
+                   2.0000714765E-1, -2.4999993993E-1, 3.3333331174E-1],
+                  np.float32)
+_LOG_Q1, _LOG_Q2 = np.float32(-2.12194440e-4), np.float32(0.693359375)
+
+
+def _fma_x(a, b, c) -> np.ndarray:
+    """Elementwise a * b + c of float32 arrays, rounded once (see
+    :func:`fma`)."""
+    return (np.asarray(a, np.float32).astype(np.float64)
+            * np.asarray(b, np.float32) + np.asarray(c, np.float32)).astype(
+        np.float32)
+
+
+def _xla_log(x: np.ndarray) -> np.ndarray:
+    """float32 natural log of positive normal ``x`` as the reference's
+    XLA program computes it on the CPU: Cephes' degree-8 polynomial in the
+    mantissa shifted to [sqrt(1/2) - 1, sqrt(2) - 1), its multiply-adds
+    fused. It is not correctly rounded (it differs from libm's log by an
+    ulp on a few inputs), and the entropy adds those ulps up."""
+    m, e = np.frexp(np.asarray(x, np.float32))
+    m, e = m.astype(np.float32), e.astype(np.float32)
+    low = m < np.float32(0.707106781186547524)
+    e = e - low.astype(np.float32)
+    x = (m - np.float32(1)) + np.where(low, m, np.float32(0))
+    x2 = x * x
+    x3 = x2 * x
+    p = _LOG_P
+    y = _fma_x(x, p[0], p[1])
+    y1 = _fma_x(x, p[3], p[4])
+    y2 = _fma_x(x, p[6], p[7])
+    y = _fma_x(y, x, p[2])
+    y1 = _fma_x(y1, x, p[5])
+    y2 = _fma_x(y2, x, p[8])
+    y = _fma_x(y, x3, y1)
+    y = _fma_x(y, x3, y2)
+    y = _fma_x(y, x3, _LOG_Q1 * e)
+    x = _fma_x(-x2, np.float32(0.5), x) + y
+    return _fma_x(_LOG_Q2, e, x)
+
+
+def _entropy_terms(total: int) -> np.ndarray:
+    """-p log2(p) for p = k / total, k = 0..total (0 for k = 0), in the
+    reference's float32 arithmetic: log2 is XLA's log times log2(e)."""
+    k = np.arange(1, total + 1, dtype=np.float32)
+    p = k / np.float32(total)
+    log2 = _xla_log(p) * np.float32(1.4426950408889634)
+    return np.concatenate([[np.float32(0)], -p * log2]).astype(np.float32)
+
+
 def local_entropy(image_u8: torch.Tensor, footprint,
                   n_levels: int = 256) -> torch.Tensor:
     """skimage.filters.rank.entropy: the Shannon entropy (bits) of the
-    local histogram under ``footprint``, for uint8-valued input. One
-    masked footprint sum per level, in level order, as the reference's
-    scan adds them."""
+    local histogram under the 0/1 ``footprint``, for uint8-valued input.
+    Per level, in level order as the reference's scan adds them, the
+    footprint count of each pixel's window (an exact integer) indexes the
+    table of -p log2 p (:func:`_entropy_terms`), so the card, the CPU and
+    the reference add the same float32 terms."""
     q = image_u8.to(torch.int32)
     fp = np.asarray(footprint, np.float32)
+    if not np.isin(fp, (0, 1)).all():
+        raise ValueError("local_entropy takes a 0/1 footprint")
     kh, kw = fp.shape
     ry, rx = kh // 2, kw // 2
     qp = pad2d(q, (ry, ry), (rx, rx), "reflect")
-    total = float(fp.sum(dtype=np.float32))
+    terms = torch.as_tensor(_entropy_terms(int(fp.sum())), device=q.device)
     out = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
     for level in range(n_levels):
         mask = (qp == level).to(torch.float32)
-        p = _correlate2d(mask, fp, skip_zeros=True) / total
-        out = out + torch.where(p > 0, -p * torch.log2(p),
-                                torch.zeros_like(p))
+        count = _correlate2d(mask, fp, skip_zeros=True)
+        out = out + terms[count.to(torch.int64)]
     return out
+
+
+def fma(p, q, r) -> torch.Tensor:
+    """p * q + r in float32, rounded once: the product of two float32 is
+    exact in float64, so this is a fused multiply-add (up to a double
+    rounding that needs the float64 sum to land on a float32 tie)."""
+    return (p * q.double() + r.double()).float()
+
+
+def hypot(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """``jnp.hypot`` as the reference computes it (XLA's CPU backend fuses
+    the square into the add): with x1 = max(|u|, |v|) and x2 the min,
+    x1 * sqrt(fma(r, r, 1)) for r = x2 / x1, 0 where x1 is 0. libm's
+    ``hypot`` (``torch.hypot``) differs from it by an ulp."""
+    u, v = u.abs(), v.abs()
+    x1, x2 = torch.maximum(u, v), torch.minimum(u, v)
+    zero = x1 == 0
+    r = x2 / torch.where(zero, torch.ones_like(x1), x1)
+    # the float32 root rounded from float64's is correctly rounded, as
+    # XLA's is; torch's float32 sqrt on the CPU is not
+    root = torch.sqrt(fma(r, r, torch.ones_like(r)).double()).float()
+    out = torch.where(zero, x1, x1 * root)
+    return torch.where(torch.isinf(x1), torch.full_like(x1, np.inf), out)
 
 
 def laplacian_3x3(x: torch.Tensor, mode: str = "reflect") -> torch.Tensor:

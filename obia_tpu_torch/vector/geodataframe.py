@@ -1,8 +1,10 @@
 """GeoDataFrame: a pandas DataFrame with a geometry column + CRS (the
 port's copy of ``obia_tpu/vector/geodataframe.py``, trimmed to
-construction, the ``intersects``, ``within`` and ``overlaps`` predicates,
-the GeoPackage writer and reader (:func:`read_file`), and ``sjoin``, which
-``label_segments`` joins labelled points with).
+construction, ``total_bounds``, ``bounds``, ``to_crs``, the ``intersects``,
+``within`` and ``overlaps`` predicates, the GeoPackage, GeoJSON and
+shapefile writer and reader (:func:`read_file`, through the pandas-free
+:mod:`.features`), and ``sjoin``, which ``label_segments`` joins labelled
+points with).
 
 This module imports pandas, which the card's machine need not have: the
 port imports it only inside ``ObjectTable.to_geodataframe``, at the API
@@ -17,7 +19,7 @@ import pandas as pd
 
 from ..geometry.crs import CRS
 from ..geometry.geom import Geometry, MultiPolygon, Point, Polygon
-from ..io import gpkg as gpkg_io
+from . import features
 
 
 class GeoDataFrame(pd.DataFrame):
@@ -59,6 +61,30 @@ class GeoDataFrame(pd.DataFrame):
     def geometry(self) -> pd.Series:
         return self["geometry"]
 
+    @property
+    def total_bounds(self) -> np.ndarray:
+        return features.Features({}, list(self.geometry)).total_bounds
+
+    @property
+    def bounds(self) -> pd.DataFrame:
+        bs = [g.bounds if g is not None else (np.nan,) * 4
+              for g in self.geometry]
+        return pd.DataFrame(bs, columns=["minx", "miny", "maxx", "maxy"],
+                            index=self.index)
+
+    def to_crs(self, crs) -> "GeoDataFrame":
+        """Reproject every geometry to ``crs``: WGS84 geographic, UTM
+        326xx/327xx and Web Mercator; any other pair raises
+        :class:`obia_tpu_torch.geometry.transform_crs.CRSTransformError`."""
+        dst = CRS.from_user_input(crs)
+        if self.crs is None:
+            raise ValueError("to_crs: this GeoDataFrame has no source CRS")
+        out = self.copy()
+        out["geometry"] = features.reproject(list(self.geometry), self.crs,
+                                             dst)
+        object.__setattr__(out, "crs", dst)
+        return out
+
     # -- predicates -----------------------------------------------------------
     def intersects(self, other: Geometry) -> pd.Series:
         ob = other.bounds
@@ -85,30 +111,23 @@ class GeoDataFrame(pd.DataFrame):
     # -- I/O ------------------------------------------------------------------
     def to_file(self, path: str, driver: Optional[str] = None,
                 layer: Optional[str] = None) -> None:
-        """Write a GeoPackage layer (the one output format the port has)."""
-        if driver is None:
-            driver = "GPKG"
-        if driver != "GPKG":
-            raise ValueError(f"only GPKG output is supported, got {driver}")
+        """Write a GeoPackage layer, a GeoJSON file or a shapefile, the
+        format from ``driver`` or else the extension; a None geometry
+        raises."""
         cols = [(c, self[c].tolist()) for c in self.columns if c != "geometry"]
-        gpkg_io.write_features(path, cols, list(self.geometry),
-                               layer or _layer_from_path(path), self.crs)
-
-
-def _layer_from_path(path: str) -> str:
-    import os
-    return os.path.splitext(os.path.basename(path))[0] or "layer"
+        features.write_features(path, cols, list(self.geometry), self.crs,
+                                driver=driver, layer=layer)
 
 
 def read_file(path: str, layer: Optional[str] = None,
               bbox=None) -> GeoDataFrame:
-    """Read a GeoPackage layer (the one input format the port has)."""
-    if str(path).lower().endswith((".geojson", ".json", ".shp")):
-        raise ValueError(f"only GPKG input is supported, got {path}")
-    cols, geoms, crs = gpkg_io.read_gpkg(path, layer=layer, bbox=bbox)
-    gdf = GeoDataFrame(cols if cols else None, geometry=geoms, crs=crs)
+    """Read a GeoPackage layer, a GeoJSON file or a shapefile (the format
+    from the extension); ``bbox`` keeps rows without a geometry."""
+    t = features.read_features(path, layer=layer, bbox=bbox)
+    gdf = GeoDataFrame(t.columns if t.columns else None,
+                       geometry=t.geometry, crs=t.crs)
     if "geometry" not in gdf.columns:
-        gdf["geometry"] = geoms
+        gdf["geometry"] = t.geometry
     return gdf
 
 

@@ -15,6 +15,8 @@ from obia_tpu_torch.ops import quickshift as tqs
 from obia_tpu_torch.parallel.mesh import make_mesh
 from obia_tpu_torch.segmentation import segment as tsegment
 from obia_tpu_torch.segmentation import segment_boundaries as tsb
+from obia_tpu_torch.utils import cost as tcost
+from obia_tpu_torch.utils import seeds as tseeds
 
 
 def _image():
@@ -95,6 +97,37 @@ def _run_tiled(device):
                                      buffer=4, n_segments=3, **device)
 
 
+def _run_canopy(step):
+    """One step of the canopy workflow on 48^2 inputs (made on the CPU);
+    returns what it wrote, read back."""
+    def run(device):
+        import tempfile
+
+        import chip_smoke
+        from obia_tpu_torch.io.tiff import TiffReader
+        from obia_tpu_torch.vector.features import read_features
+        with tempfile.TemporaryDirectory() as d:
+            p = chip_smoke.write_canopy_inputs(d, 48, 0, "cpu", n_segments=6)
+            out = f"{d}/out.gpkg"
+            if step == "make_cost_surface":
+                tcost.make_cost_surface(p["wv3"], p["chm"], f"{d}/c.tif",
+                                        slic=p["slic"],
+                                        weights=(0.4, 0.2, 0.2, 0.2),
+                                        **device)
+                return TiffReader(f"{d}/c.tif").read()
+            if step == "make_canonical_seeds":
+                for fn, src in ((tseeds.make_chm_seeds, "chm"),
+                                (tseeds.make_density_seeds, "density")):
+                    fn(p[src], f"{d}/{src}.gpkg", device="cpu")
+                return tseeds.make_canonical_seeds(
+                    f"{d}/chm.gpkg", f"{d}/density.gpkg", p["chm"], p["chm"],
+                    out, **device)
+            getattr(tseeds, step)(p["chm" if step == "make_chm_seeds"
+                                    else "density"], out, **device)
+            return read_features(out)
+    return run
+
+
 def _quickshift_image():
     return np.random.default_rng(3).random((12, 14, 3)).astype(np.float32)
 
@@ -117,6 +150,18 @@ ENTRY_POINTS = {
     "make_mesh": _run_make_mesh,
     "classify": _run_classify,
     "create_tiled_segments": _run_tiled,
+    "make_chm_seeds": _run_canopy("make_chm_seeds"),
+    "make_density_seeds": _run_canopy("make_density_seeds"),
+    "make_cost_surface": _run_canopy("make_cost_surface"),
+    "make_canonical_seeds": _run_canopy("make_canonical_seeds"),
+    "build_distance_matrix": lambda device: tseeds.build_distance_matrix(
+        np.arange(3.0), np.arange(3.0),
+        np.ones((4, 4), np.float32), Affine(1, 0, 0, 0, -1, 4), 0.5, 0.8,
+        **device),
+    "chm_gradient": lambda device: tcost.chm_gradient(
+        np.random.default_rng(4).random((9, 11)), **device),
+    "texture_entropy": lambda device: tcost.texture_entropy(
+        np.random.default_rng(5).random((9, 11)), **device),
     "quickshift": lambda device: tqs.quickshift(
         _quickshift_image(), kernel_size=1, max_dist=3, **device),
     "quickshift_tree": lambda device: tqs.quickshift_tree(

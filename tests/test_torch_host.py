@@ -232,5 +232,12 @@ def test_geopackage_written_by_the_port_reads_back_in_the_reference(
     assert back.crs.to_epsg() == 32633
     assert [g.area for g in back.geometry] == [sq.area, multi.area]
     assert back.geometry[1].geom_type == "MultiPolygon"
+    # the other formats the reference writes, read back by it
+    for name, driver in (("objects.geojson", "GeoJSON"),
+                         ("objects.shp", "ESRI Shapefile")):
+        gdf.to_file(str(tmp_path / name), driver=driver)
+        other = read_file(str(tmp_path / name))
+        assert list(other["segment_id"]) == [1, 2]
+        assert [g.area for g in other.geometry] == [sq.area, multi.area]
     with pytest.raises(ValueError, match="GPKG"):
-        gdf.to_file(str(tmp_path / "objects.geojson"), driver="GeoJSON")
+        gdf.to_file(str(tmp_path / "objects.kml"), driver="KML")

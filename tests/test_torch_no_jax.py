@@ -3,8 +3,8 @@
 scipy: the port imports none of them on its main paths (SLIC + forest,
 quickshift + MLP, ``classify`` with the MLP and Kernel SHAP on object
 tables, the sharded mosaic on a 2 x 4 CPU mesh, tiled segmentation with the
-``sigma`` pre-blur), and never loads jax, flax, optax or click (the CLI
-module imports without it). Its sources and ``chip_smoke.py`` import neither jax
+``sigma`` pre-blur, the canopy seed and cost-surface workflow), and never
+loads jax, flax, optax or click (the CLI module imports without it). Its sources and ``chip_smoke.py`` import neither jax
 nor ``obia_tpu``."""
 import subprocess
 import sys
@@ -116,6 +116,60 @@ def test_port_runs_without_jax_pandas_sklearn_pil(tmp_path):
         timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "NO_JAX_OK" in proc.stdout
+
+
+CANOPY = textwrap.dedent("""
+    import builtins
+    import sys
+    BLOCKED = ("jax", "jaxlib", "pandas", "sklearn", "PIL", "flax", "optax",
+               "obia_tpu", "click", "cv2")
+    real_import = builtins.__import__
+
+    def blocked(name, *a, **k):
+        if name.split(".")[0] in BLOCKED:
+            raise ImportError(f"No module named {name!r} (blocked)")
+        return real_import(name, *a, **k)
+
+    builtins.__import__ = blocked
+
+    import os
+    import numpy as np
+    import chip_smoke
+    from obia_tpu_torch.io.gpkg import read_gpkg
+    from obia_tpu_torch.io.tiff import TiffReader
+    from obia_tpu_torch.utils.cost import make_cost_surface
+    from obia_tpu_torch.utils.seeds import (make_canonical_seeds,
+                                            make_chm_seeds,
+                                            make_density_seeds)
+
+    p = chip_smoke.write_canopy_inputs(".", 64, 0, "cpu", n_segments=12)
+    make_chm_seeds(p["chm"], "chm_seeds.gpkg", device="cpu")
+    make_density_seeds(p["density"], "den_seeds.gpkg", device="cpu")
+    make_cost_surface(p["wv3"], p["chm"], "cost.tif", slic=p["slic"],
+                      weights=(0.4, 0.2, 0.2, 0.2), device="cpu")
+    out = make_canonical_seeds("chm_seeds.gpkg", "den_seeds.gpkg", p["chm"],
+                               "cost.tif", "canonical.gpkg", device="cpu")
+    cols, geoms, _ = read_gpkg("canonical.gpkg", layer="canonical_seeds")
+    assert len(out) == len(geoms) > 3 and cols["id"] == list(range(len(out)))
+    cost = TiffReader("cost.tif").read()
+    assert ((cost == -9999) | ((cost >= 0) & (cost <= 1))).all()
+    for mod in BLOCKED:
+        assert mod not in sys.modules, mod
+    print("CANOPY_OK", len(out))
+""")
+
+
+def test_canopy_runs_without_jax_pandas_sklearn_pil(tmp_path):
+    """chm-seeds -> density-seeds -> cost-surface (with a SLIC layer in
+    EPSG:4326) -> canonical-seeds at 64^2, with OpenCV blocked too."""
+    proc = subprocess.run(
+        [sys.executable, "-c", CANOPY], cwd=tmp_path, text=True,
+        capture_output=True,
+        env={"PYTHONPATH": str(REPO), "PATH": "/usr/bin:/bin",
+             "HOME": str(tmp_path)},
+        timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "CANOPY_OK" in proc.stdout
 
 
 def test_port_sources_never_import_jax():

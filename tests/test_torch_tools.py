@@ -20,8 +20,7 @@ import torch
 
 from obia_tpu_torch import checkpoint as tck
 
-UNPORTED_COMMANDS = {"chm-seeds", "density-seeds", "canonical-seeds",
-                     "cost-surface", "bench"}
+UNPORTED_COMMANDS = {"bench"}
 
 
 def _jax_npz_only(monkeypatch):
