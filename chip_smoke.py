@@ -104,10 +104,13 @@ any failure raises and exits non-zero:
    3), ``segments.gpkg`` read back with N rows and ``segment_id`` 1..N,
    the polygons covering more than 93% and at most 100% of the raster's
    area, and more than 99.5% of the pixels covered at most once (each
-   polygon rasterised over its own bounding box);
+   polygon rasterised over its own bounding box); then ``create_objects``
+   on that layer, which carries no label raster, over
+   ``open_geotiff(raster)``: N rows, ``b0_mean`` finite on >= 99% of them;
 15. cross-check: config 3 at 1024^2 with the same tiling on the card and on
    the CPU: segment counts within 1%, rasterised label partitions agreeing
-   on >= 99.5% of the pixels; then the card's run resumed
+   on >= 99.5% of the pixels, the two layers' ``create_objects`` column
+   means as in phase 6; then the card's run resumed
    (``resume=True``), which must segment no tile and give the same count
    (resumed here and not at 2048^2, where pass 2's host predicates would
    add ~3 minutes to the script);
@@ -124,30 +127,51 @@ any failure raises and exits non-zero:
    on the same files: peak sets and canonical rows equal, cost rasters
    within atol 1e-6 with equal nodata, the distance matrix within rtol
    1e-6, DBSCAN labels equal (a pair within 1e-6 of eps excepted, and
-   printed).
+   printed);
+18. ``create_objects``' other inputs on phase 4's config-4 layer and table
+   (4096^2 x 8): (a) every other object (``table.take``) through the
+   rasterise path, cold, then warm under ``telemetry.trace``, with the
+   launch counts read around the warm call (``glcm_sums`` > 0, and its
+   kernels in the Chrome trace), then once with the stages synced; every
+   column equal to the unfiltered table's rows within rtol 1e-6 / atol
+   1e-6; (b) the structural and radiometric families
+   (``voxel_resolution=1.0``) with a seeded cloud of 33,554,432 points
+   (USGS 3DEP QL2's 2 points/m^2 over the 16.8 km^2 scene at 1 m: 30%
+   ground returns below 1 m, the rest 1-30 m, uint16 intensity), cold and
+   warm with the stages synced, each column finite on >= 99% of the rows;
+   ``segment_pointcloud_stats`` on the card against the CPU on the same
+   points and labels: CH and the NaN slots equal, the rest within rtol
+   1e-12;
+19. at 256^2 (config 4's bands, n_segments=100): a LAS round trip
+   (``write_las`` then ``create_objects(pointcloud=path)``) equal to the
+   dict input, on points that LAS stores exactly; ``strict_reference_glcm``
+   with bands 0/3/6 on a ``Features`` table, on the card and on the CPU:
+   the rasterised labels and the strict columns equal, NaNs included;
+   ``slic()`` on the card equal to ``slic_dense``'s labels + 1.
 
 After the build a line gives the quickshift kernels' registers, spilled
 bytes and pixels a thread (P) as the library reports them. The last two
-lines are a JSON object of the kernels' launches, errors, times and bounds,
-and ``{"ok": true, "device": {...}}``. A kernel's ``bound_ms`` is the larger
-of the bytes it must move (each input read once, each output written once;
-a band counts its own 4 bytes a pixel) over 3.35 TB/s and its operations
-over 67 TFLOP/s float32, from this run's shapes. The quickshift scans count
-the pixel-offset pairs whose neighbour lies in the image (the parent's
-offsets only those of the max_dist disk) at 3C + 4 float32 operations, and
-the density's exponentials apart, over the SFU's 16 a clock per SM (4.18 T/s
-at 1.98 GHz); their ``bound_term`` names the larger term ("fp32", "sfu" or
-"bytes"; ``bound_by`` says "operations" for either of the first two).
-``glcm_hist``'s bound charges the labels and band of each piece's box and
-its 2-pixel halo (8 bytes a pixel), the work list, and the sums written
-once, as the main path launches it (no tables); ``bound_ms_tables`` adds
-the summed tables written once. ``glcm_sums`` also reports
-``bound_ms_layout``: the same with the band charged the 32-byte sectors that
-hold it in the interleaved (H, W, C) image, the least a kernel that reads
-the band in place can take. No one
-PyTorch call computes any of the four, so ``library_ms`` is null. The
-script needs no network, JAX, pandas or sklearn (with sklearn importable,
-the forest is fitted by it; without, a seeded numpy forest stands in; the
+lines are a JSON object of the kernels' launches, errors, times and
+bounds, and ``{"ok": true, "device": {...}}``. A kernel's ``bound_ms``
+is the larger of the bytes it must move (each input read once, each
+output written once; a band counts its own 4 bytes a pixel) over 3.35
+TB/s and its operations over 67 TFLOP/s float32, from this run's shapes.
+The quickshift scans count the pixel-offset pairs whose neighbour lies
+in the image (the parent's offsets only those of the max_dist disk) at
+3C + 4 float32 operations, and the density's exponentials apart, over
+the SFU's 16 a clock per SM (4.18 T/s at 1.98 GHz); their ``bound_term``
+names the larger term ("fp32", "sfu" or "bytes"; ``bound_by`` says
+"operations" for either of the first two). ``glcm_hist``'s bound charges
+the labels and band of each piece's box and its 2-pixel halo (8 bytes a
+pixel), the work list, and the sums written once, as the main path
+launches it (no tables); ``bound_ms_tables`` adds the summed tables
+written once. ``glcm_sums`` also reports ``launches_rasterised`` (phase
+18's warm call) and ``bound_ms_layout``: the same with the band charged
+the 32-byte sectors that hold it in the interleaved (H, W, C) image, the
+least a kernel that reads the band in place can take. No one PyTorch
+call computes any of the four, so ``library_ms`` is null. The script
+needs no network, JAX, pandas or sklearn (with sklearn importable, the
+forest is fitted by it; without, a seeded numpy forest stands in; the
 MLP and ``classify(method="mlp")`` need neither), and imports nothing of
 the JAX package.
 """
@@ -181,6 +205,9 @@ C3_KW = dict(tile_size=512, buffer=64, n_segments=700)
 CANOPY_SIZE = 2048      # a 4.2 km^2 plot at 1 m
 CANOPY_CROSS_SIZE = 512
 CANOPY_PITCH = 20       # px between crown centres: ~10.5 k crowns at 2048^2
+N_POINTS = 2 * SIZE * SIZE  # USGS 3DEP QL2: 2 points/m^2 over 4096^2 m
+OBJ_SMALL_SIZE = 256
+PC_COLUMNS = ("pai", "fhd", "ch", "mean_intensity", "variance_intensity")
 HBM_BYTES_PER_MS = 3.35e9   # H100 SXM: 3.35 TB/s
 FP32_OPS_PER_MS = 67e9      # H100 SXM: 67 TFLOP/s float32 outside the MMAs
 SFU_OPS_PER_MS = 132 * 16 * 1.98e6  # 132 SMs x 16 exponentials a clock
@@ -1142,6 +1169,44 @@ def config3_phase(size: int, root: str, card: str) -> None:
         f"{time.perf_counter() - t0:.1f} s)")
     if not 0.93 < area <= 1.0 + 1e-9 or once <= 0.995:
         raise AssertionError("config 3 coverage outside its bars")
+    features = config3_objects(out, raster, "cuda")
+    finite = float(np.isfinite(features["b0_mean"]).mean())
+    log(f"  b0_mean finite on {finite:.6f} of the rows")
+    if len(features) != n or finite < 0.99:
+        raise AssertionError("config 3 features: rows or b0_mean wrong")
+
+
+def config3_objects(layer, raster: str, device: str):
+    """``create_objects`` on a config-3 layer (it carries no label raster,
+    so the polygons are rasterised) over ``open_geotiff(raster)`` on
+    ``device``, the stages synced; logs the time, the stages and the
+    ``glcm_sums`` launches, and returns the table."""
+    import torch
+
+    from obia_tpu_torch import telemetry
+    from obia_tpu_torch.handlers.geotif import open_geotiff
+    from obia_tpu_torch.ops import glcm_kernel
+    from obia_tpu_torch.segmentation.segment_statistics import create_objects
+    image = open_geotiff(raster)
+    telemetry.reset()
+    telemetry.enable(True)
+    reset_launches()
+    try:
+        t0 = time.perf_counter()
+        objs = create_objects(layer, image, device=device)
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    finally:
+        telemetry.enable(False)
+    log(f"  create_objects on the {len(layer)}-row layer ({device}, "
+        f"rasterised): {seconds:.3f} s, glcm_sums launches "
+        f"{glcm_kernel.launches}; " + ", ".join(
+            f"{k} {1000 * v['total_s']:.1f} ms"
+            for k, v in telemetry.report().items()))
+    if torch.device(device).type == "cuda" and glcm_kernel.launches < 1:
+        raise AssertionError("config 3 features launched no glcm_sums")
+    return objs
 
 
 def config3_cross_check(size: int, root: str) -> None:
@@ -1161,6 +1226,8 @@ def config3_cross_check(size: int, root: str) -> None:
         f"agree on {agree:.6f} of the pixels")
     if abs(len(gpu) - len(cpu)) > 0.01 * len(cpu) or agree < 0.995:
         raise AssertionError("config 3 card vs CPU outside its bars")
+    check_column_means(config3_objects(gpu, raster, "cuda"),
+                       config3_objects(cpu, raster, "cpu"))
     calls = []
     real = tiling.create_segments
     tiling.create_segments = lambda *a, **k: calls.append(1) or real(*a, **k)
@@ -1391,6 +1458,248 @@ def canopy_cross_check(size: int, root: str, seed: int) -> None:
     if not (same_peaks and cost_err <= 1e-6 and same_nodata and d_ok
             and labels_ok and rows_g == rows_c):
         raise AssertionError("canopy card vs CPU outside its bars")
+
+
+def ql2_cloud(size: int, n: int, seed: int) -> dict:
+    """A lidar cloud over a size^2 scene at 1 m (the transform
+    Affine(1, 0, 0, 0, -1, size)): n points uniform in X and Y, about 30%
+    ground returns (Z in [0, 1) m), the rest Z in [1, 30) m, uint16
+    intensity."""
+    rng = np.random.default_rng(seed)
+    ground = rng.random(n) < 0.3
+    return {"X": rng.uniform(0, size, n), "Y": rng.uniform(0, size, n),
+            "Z": np.where(ground, rng.uniform(0, 1, n),
+                          rng.uniform(1, 30, n)),
+            "Intensity": rng.integers(0, 65536, n, dtype=np.uint16)}
+
+
+def reset_launches() -> None:
+    """Every kernel wrapper's launch count to 0."""
+    from obia_tpu_torch.ops import glcm_kernel
+    from obia_tpu_torch.ops import quickshift_kernel as qk
+    glcm_kernel.launches = glcm_kernel.hist_launches = 0
+    qk.launches.update(qs_density=0, qs_parent=0)
+
+
+def trace_kernels(log_dir: str) -> dict:
+    """Device time (us) of each CUDA kernel in the Chrome trace that
+    ``telemetry.trace`` wrote to ``log_dir``."""
+    (name,) = os.listdir(log_dir)
+    with open(os.path.join(log_dir, name)) as f:
+        events = json.load(f)["traceEvents"]
+    busy = {}
+    for e in events:
+        if e.get("cat") == "kernel":
+            busy[e["name"]] = busy.get(e["name"], 0.0) + float(e["dur"])
+    return busy
+
+
+def compare_pc_stats(got: dict, want: dict, what: str) -> None:
+    """Point-cloud columns card vs CPU: CH and the NaN slots equal, the
+    rest within rtol 1e-12."""
+    worst = 0.0
+    for c in PC_COLUMNS:
+        a, b = np.asarray(got[c]), np.asarray(want[c])
+        if not np.array_equal(np.isnan(a), np.isnan(b)):
+            raise AssertionError(f"{what} {c}: NaN slots differ")
+        if c == "ch" and not np.array_equal(a, b, equal_nan=True):
+            raise AssertionError(f"{what}: CH differs")
+        ok = ~np.isnan(b)
+        rel = np.abs(a[ok] - b[ok]) / np.maximum(np.abs(b[ok]), 1e-300)
+        worst = max(worst, float(rel.max()) if rel.size else 0.0)
+        if not np.allclose(a[ok], b[ok], rtol=1e-12, atol=0):
+            raise AssertionError(f"{what} {c}: beyond rtol 1e-12")
+    log(f"  {what}: CH and NaN slots equal, largest relative difference "
+        f"{worst:.3e}")
+
+
+def objects_phase(image, s, card: str, seed: int) -> int:
+    """Phase 18, config 4 at full width on phase 4's layer and table:
+    (a) every other object through the rasterise path, cold and warm, the
+    warm call under ``telemetry.trace``; (b) the point-cloud families with
+    a QL2 cloud, cold and warm, synced, and the statistics card vs CPU.
+    Returns the warm (a) call's ``glcm_sums`` launches."""
+    import tempfile
+
+    import torch
+
+    from obia_tpu_torch import telemetry
+    from obia_tpu_torch.ops import glcm_kernel
+    from obia_tpu_torch.ops.pointcloud import segment_pointcloud_stats
+    from obia_tpu_torch.segmentation.segment_statistics import create_objects
+    full = s.table
+    kept = full.take(np.arange(0, len(full), 2))
+
+    def featurise():
+        t0 = time.perf_counter()
+        out = create_objects(kept, image)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    _, cold = featurise()
+    with tempfile.TemporaryDirectory() as tdir:
+        reset_launches()
+        with telemetry.trace(tdir):
+            out, warm = featurise()
+        launches = glcm_kernel.launches
+        busy = trace_kernels(tdir)
+    sums_us = sum(v for k, v in busy.items()
+                  if "glcm_small_kernel" in k or "glcm_large_kernel" in k)
+    log(f"config 4 {SIZE}^2, create_objects on every other object ({len(kept)}"
+        f" of {len(full)} rows, rasterised): cold {cold:.3f} s, warm "
+        f"{warm:.3f} s under the trace ({card}); glcm_sums launches "
+        f"{launches}; trace: {len(busy)} kernels, device busy "
+        f"{sum(busy.values()) / 1e3:.1f} ms, glcm_sums kernels "
+        f"{sums_us / 1e3:.2f} ms")
+    if len(out) != len(kept) or launches < 1 or sums_us <= 0:
+        raise AssertionError("rasterise path: rows, launches or the trace's "
+                             "glcm_sums kernels missing")
+    same = 0
+    for c in full.columns:
+        a, b = np.asarray(full[c][kept.rows], np.float64), np.asarray(
+            out[c], np.float64)
+        if not np.allclose(a, b, rtol=1e-6, atol=1e-6, equal_nan=True):
+            raise AssertionError(f"rasterised column {c} != the unfiltered "
+                                 "table's rows")
+        same += np.array_equal(a, b, equal_nan=True)
+    log(f"  every column equal to the unfiltered rows within rtol 1e-6 "
+        f"({same} of {len(full.columns)} bitwise)")
+    telemetry.reset()
+    telemetry.enable(True)
+    try:
+        featurise()
+    finally:
+        telemetry.enable(False)
+    log("  synced stages: " + ", ".join(
+        f"{k} {1000 * v['total_s']:.1f} ms"
+        for k, v in telemetry.report().items()))
+
+    pc = ql2_cloud(SIZE, N_POINTS, seed)
+    kw = dict(calculate_structural=True, calculate_radiometric=True,
+              voxel_resolution=1.0, pointcloud=pc)
+    times = []
+    for _ in range(2):
+        telemetry.reset()
+        telemetry.enable(True)
+        try:
+            t0 = time.perf_counter()
+            objs = create_objects(s.layer, image, **kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            telemetry.enable(False)
+        times.append((wall, telemetry.report()["objects.pointcloud"][
+            "total_s"]))
+    labels = s.layer.labels_dev
+    base = torch.cuda.memory_allocated() / 2 ** 30
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    card_pc = segment_pointcloud_stats(pc, labels, image.transform, len(full),
+                                       voxel_resolution=1.0)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    t0 = time.perf_counter()
+    cpu_pc = segment_pointcloud_stats(pc, labels.cpu(), image.transform,
+                                      len(full), voxel_resolution=1.0)
+    cpu_s = time.perf_counter() - t0
+    n_layers = int(np.floor(np.nanmax(card_pc["ch"]))) + 1
+    log(f"config 4 {SIZE}^2 with {N_POINTS:,} points (QL2, 2 points/m^2; "
+        f"{4 * N_POINTS * 8 / 1e9:.2f} GB as float64): create_objects cold "
+        f"{times[0][0]:.3f} s (objects.pointcloud {1000 * times[0][1]:.1f} "
+        f"ms), warm {times[1][0]:.3f} s (objects.pointcloud "
+        f"{1000 * times[1][1]:.1f} ms), synced ({card}); FHD table about "
+        f"{len(full)} x {n_layers} float64 "
+        f"({len(full) * n_layers * 8 / 1e6:.2f} MB); the statistics alone: "
+        f"card {1000 * card_s:.1f} ms (peak device memory {peak:.2f} GiB, "
+        f"{base:.2f} GiB held before), CPU {1000 * cpu_s:.1f} ms")
+    for c in PC_COLUMNS:
+        if not np.array_equal(objs[c], card_pc[c], equal_nan=True):
+            raise AssertionError(f"create_objects {c} != the card's stats "
+                                 "(two runs on the card differ)")
+        if np.isfinite(objs[c]).mean() < 0.99:
+            raise AssertionError(f"{c} is NaN on more than 1% of the rows")
+    compare_pc_stats(card_pc, cpu_pc, f"{N_POINTS:,} points card vs CPU")
+    kernel_split(lambda: segment_pointcloud_stats(
+        pc, labels, image.transform, len(full), voxel_resolution=1.0),
+        "point-cloud statistics, one call")
+    return launches
+
+
+def objects_small_phase(seed: int) -> None:
+    """Phase 19 at 256^2 (config 4's bands, n_segments=100): a LAS round
+    trip into create_objects, the strict GLCM hatch on the card against the
+    CPU, and ``slic()`` against ``slic_dense``."""
+    import tempfile
+
+    import torch
+
+    from obia_tpu_torch.io.las import read_las, write_las
+    from obia_tpu_torch.ops.slic import slic, slic_dense
+    from obia_tpu_torch.segmentation.segment import segment
+    from obia_tpu_torch.segmentation.segment_statistics import create_objects
+    from obia_tpu_torch.vector.features import Features
+    size = OBJ_SMALL_SIZE
+    scene = config4_scene(size)
+    image = as_image(scene)
+    s = segment(image, segmentation_bands=[0, 3, 6],
+                statistics_bands=list(range(BANDS)), n_segments=100,
+                compactness=10, device="cuda")
+    layer = s.layer
+    rng = np.random.default_rng(seed)
+    n = 40000
+    eighths = {"X": rng.integers(0, 8 * size, n) / 8,
+               "Y": rng.integers(0, 8 * size, n) / 8,
+               "Z": rng.integers(0, 8 * 30, n) / 8,
+               "Intensity": rng.integers(0, 65536, n, dtype=np.uint16)}
+    kw = dict(calculate_structural=True, calculate_radiometric=True,
+              voxel_resolution=1.0, calculate_textural=False)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "points.las")
+        write_las(path, eighths, point_format=1, scale=(0.125,) * 3,
+                  offset=(0.0,) * 3, crs="EPSG:32633")
+        back = read_las(path)
+        from_path = create_objects(layer, image, pointcloud=path, **kw)
+    from_dict = create_objects(layer, image, pointcloud=eighths, **kw)
+    for k in eighths:
+        if not np.array_equal(back[k], eighths[k]):
+            raise AssertionError(f"LAS round trip changed {k}")
+    for c in PC_COLUMNS:
+        if not np.array_equal(from_path[c], from_dict[c], equal_nan=True):
+            raise AssertionError(f"create_objects(pointcloud=path) {c} != "
+                                 "the dict input's")
+    log(f"phase 19, {size}^2: LAS round trip of {n} points exact, "
+        f"create_objects from the path equal to the dict input")
+
+    table = Features({"segment_id": list(layer.segment_id)}, layer.geometry,
+                     crs=layer.crs)
+    def strict(dev):
+        t0 = time.perf_counter()
+        out = create_objects(table, image, strict_reference_glcm=True,
+                             textural_bands=[0, 3, 6], device=dev)
+        return out, time.perf_counter() - t0
+
+    (g, g_s), (c, c_s) = strict("cuda"), strict("cpu")
+    if not np.array_equal(g.label_raster, c.label_raster):
+        raise AssertionError("rasterised label rasters differ")
+    for col in g.columns:
+        if col.startswith(("b0_", "b3_", "b6_")) and col.split("_", 1)[
+                1] not in ("mean", "variance", "min", "max", "skewness",
+                           "kurtosis"):
+            if not np.array_equal(g[col], c[col], equal_nan=True):
+                raise AssertionError(f"strict {col}: card != CPU")
+    log(f"  strict_reference_glcm, {len(g)} objects, bands 0/3/6: card and "
+        f"CPU columns equal, NaNs included ({g_s:.2f} s / {c_s:.2f} s)")
+    check_column_means(g, c)
+
+    x = np.ascontiguousarray(scene[:, :, [0, 3, 6]], np.float32) / 255.0
+    labels = slic(x, n_segments=100, compactness=10)
+    dense, k = slic_dense(torch.as_tensor(x, device="cuda"), n_segments=100,
+                          compactness=10)
+    if not np.array_equal(labels, dense.cpu().numpy() + 1):
+        raise AssertionError("slic() != slic_dense labels + 1")
+    log(f"  slic() on the card: {k} segments, labels equal to slic_dense's "
+        "+ 1")
 
 
 def qs_scenes():
@@ -1850,6 +2159,10 @@ def main() -> None:
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
+    # -- 18-19. create_objects' full surface ---------------------------------
+    rasterised = objects_phase(image, s, card, seed)
+    objects_small_phase(seed)
+
     log(card_line())
     qs_r, qs_md = 15, QS_KW["max_dist"]  # as qs_time measures
     qd_bound, qp_bound = qs_bound(x2, qs_r), qs_bound(x2, qs_r, qs_md)
@@ -1866,7 +2179,7 @@ def main() -> None:
          "bound_ms_layout_config2": bound2_l, "launches_config2": glcm2,
          "ms_config5": s5_ms, "plain_ms_config5": s5_plain,
          "bound_ms_config5": bound5, "bound_ms_layout_config5": bound5_l,
-         "launches_config5": sums5},
+         "launches_config5": sums5, "launches_rasterised": rasterised},
         {"name": "qs_density", "route": "cuda",
          "source": "obia_tpu_torch/csrc/quickshift.cu",
          "replaces": "obia_tpu/ops/quickshift_pallas.py:118",

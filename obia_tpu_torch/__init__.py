@@ -19,6 +19,8 @@ built with g++ at first use).
     from obia_tpu_torch.classification.mlp import TorchMLPClassifier
     from obia_tpu_torch.classification.classify import classify
     from obia_tpu_torch.utils.utils import label_segments
+    from obia_tpu_torch.utils.tiling import create_tiled_segments
+    from obia_tpu_torch.parallel.mosaic import segment_mosaic
 
 Importing the package switches TF32 off for float32 matmuls and cuDNN
 convolutions (``torch.backends.cuda.matmul.allow_tf32`` and
@@ -34,7 +36,7 @@ torch.backends.cudnn.allow_tf32 = False
 
 __all__ = ["__version__", "open_geotiff", "image_from_array", "segment",
            "TorchForestClassifier", "TorchMLPClassifier", "classify",
-           "label_segments"]
+           "label_segments", "create_tiled_segments", "segment_mosaic"]
 
 
 def __getattr__(name):
@@ -57,4 +59,10 @@ def __getattr__(name):
     if name == "label_segments":
         from .utils.utils import label_segments
         return label_segments
+    if name == "create_tiled_segments":
+        from .utils.tiling import create_tiled_segments
+        return create_tiled_segments
+    if name == "segment_mosaic":
+        from .parallel.mosaic import segment_mosaic
+        return segment_mosaic
     raise AttributeError(f"module 'obia_tpu_torch' has no attribute {name!r}")

@@ -179,7 +179,7 @@ class ClassifiedImage:
 
     def __init__(self, table, confusion_matrix, report, shap_values,
                  transform, crs, params, label_raster=None, classifier=None,
-                 proba=None, shap_inputs=None):
+                 proba=None, shap_inputs=None, label_rows=None):
         self.table = table
         self.confusion_matrix = confusion_matrix
         self.report = report
@@ -191,6 +191,7 @@ class ClassifiedImage:
         self.proba = proba
         self.shap_inputs = shap_inputs
         self._label_raster = label_raster
+        self._label_rows = label_rows
         self._frame = None if isinstance(table, ObjectTable) else table
 
     @property
@@ -201,23 +202,25 @@ class ClassifiedImage:
 
     def write_geotiff(self, output_path: str) -> None:
         """Render ``predicted_class`` per object onto the label raster (codes
-        1.. in order of first appearance, 0 for background and for segments
-        not in the table) and write an int32 GeoTIFF with nodata 0."""
+        1.. in order of first appearance, 0 for background and for raster
+        labels of no row in the table) and write an int32 GeoTIFF with
+        nodata 0. Each row is drawn on its own raster label
+        (``ObjectTable.label_rows``), so a table that ``create_objects``
+        rasterised (row i is label i, whatever its ``segment_id``) renders
+        its rows where their polygons are."""
         if self._label_raster is None or self.transform is None:
             raise ValueError(
                 "No label raster / transform available; classify() must "
                 "receive the Segments or ObjectTable of this package's "
                 "segment()/create_objects() to enable raster export.")
         from ..io.tiff import write_tiff
-        # only an ObjectTable input carries a label raster
-        sids = np.asarray(self.table["segment_id"], np.int64)
         codes = _factorize(self.table["predicted_class"])
         lab = np.asarray(self._label_raster)
-        # the LUT spans every raster label, so segments not in the table
+        rows = np.asarray(self._label_rows, np.int64)
+        # the LUT spans every raster label, so labels of no row in the table
         # (rows filtered before classify) render as background 0
-        lut = np.zeros(max(int(sids.max()), int(lab.max()) + 1) + 1,
-                       np.int32)
-        lut[sids] = codes + 1
+        lut = np.zeros(max(int(rows.max()), int(lab.max())) + 2, np.int32)
+        lut[rows + 1] = codes + 1
         out = np.where(lab >= 0, lut[lab + 1], 0)
         write_tiff(output_path, out.astype(np.int32),
                    transform=self.transform, crs=self.crs, nodata=0)
@@ -366,8 +369,9 @@ def classify(segments, training_classes, acceptable_classes_gdf=None,
         out = segments.with_columns(predicted_class=y_pred_all,
                                     prediction_margin=prediction_margin)
         crs = segments.crs
-        transform = segments.layer.transform
-        label_raster = segments.layer.label_raster
+        transform = segments.transform
+        label_raster = segments.label_raster
+        label_rows = segments.label_rows
     else:
         out = segments.copy()  # the input frame is not changed
         out["predicted_class"] = y_pred_all
@@ -375,8 +379,8 @@ def classify(segments, training_classes, acceptable_classes_gdf=None,
         out = _coerce_dtypes(out, np.issubdtype(y_pred_all.dtype,
                                                 np.integer))
         crs = getattr(segments, "crs", None)
-        transform = label_raster = None
+        transform = label_raster = label_rows = None
     return ClassifiedImage(out, cm, report, shap_values, transform, crs,
                            classifier.get_params(), label_raster=label_raster,
                            classifier=classifier, proba=proba,
-                           shap_inputs=shap_inputs)
+                           shap_inputs=shap_inputs, label_rows=label_rows)

@@ -1,22 +1,26 @@
-"""Raster container (port of the ``Image`` of ``obia_tpu/handlers/geotif.py``).
+"""Raster container and GeoTIFF I/O (port of ``obia_tpu/handlers/geotif.py``).
 
 ``Image.img_data`` is an (H, W, C) float32 numpy array, as in the
 reference; ``device_tensor(device)`` uploads it once per device and caches
 it. Files are read with the port's own GeoTIFF reader
-(:mod:`obia_tpu_torch.io.tiff`). The port's entry points also take any
-container with ``img_data``, ``crs``, ``transform`` and
+(:mod:`obia_tpu_torch.io.tiff`), which ``Image.reader`` (alias
+``rasterio_obj``, the reference's name) holds. The port's entry points also
+take any container with ``img_data``, ``crs``, ``transform`` and
 ``affine_transformation``, such as the JAX package's ``Image``.
+``open_binary_geotiff_as_mask`` returns the reference's 4-tuple
+(mask, bbox, transform, profile). PIL is imported only by the functions
+that build a PIL image (``Image.to_image``).
 """
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from ..geometry.affine import Affine
 from ..geometry.crs import CRS
-from ..io.tiff import TiffReader
+from ..io.tiff import TiffReader, write_tiff
 
 
 class Image:
@@ -24,12 +28,12 @@ class Image:
 
     def __init__(self, img_data: np.ndarray, crs, affine_transformation,
                  transform, reader=None, nodata: Optional[float] = None,
-                 raw_data: Optional[np.ndarray] = None):
+                 raw_data: Optional[np.ndarray] = None, rasterio_obj=None):
         self.img_data = img_data
         self.crs = crs
         self.affine_transformation = affine_transformation
         self.transform = transform
-        self.reader = reader
+        self.reader = reader if reader is not None else rasterio_obj
         self.nodata = nodata
         self._raw = raw_data  # source-dtype copy for cheap uploads
         self._device_cache = {}
@@ -51,6 +55,15 @@ class Image:
         return t
 
     @property
+    def rasterio_obj(self):
+        """The reference's name for :attr:`reader`."""
+        return self.reader
+
+    @rasterio_obj.setter
+    def rasterio_obj(self, value):
+        self.reader = value
+
+    @property
     def shape(self):
         return self.img_data.shape
 
@@ -65,6 +78,34 @@ class Image:
     @property
     def count(self) -> int:
         return self.img_data.shape[2]
+
+    def to_image(self, bands: Sequence[int], p_min: int = 2, p_max: int = 98,
+                 stretch_type: Optional[str] = None):
+        """Three bands as a stretched RGB PIL image: a ``p_min``-``p_max``
+        percentile stretch to 8 bits, then ``"histogram_equalization"`` or
+        ``"clahe"`` when ``stretch_type`` names one (imports PIL)."""
+        from PIL.Image import fromarray
+
+        from ..utils.image import (apply_clahe, apply_histogram_equalization,
+                                   rescale_to_8bit)
+        if not isinstance(bands, (list, tuple)) or len(bands) != 3:
+            raise ValueError("'bands' should be a list or tuple of exactly "
+                             "three elements")
+        num_bands = self.img_data.shape[2]
+        for band in bands:
+            if band >= num_bands or band < 0:
+                raise IndexError(f"Band index {band} out of range. Available "
+                                 f"bands indices: 0 to {num_bands - 1}.")
+        rgb = np.ascontiguousarray(self.img_data[:, :, list(bands)],
+                                   dtype=np.float32)
+        rgb8 = rescale_to_8bit(rgb, min=p_min, max=p_max)
+        if stretch_type == "histogram_equalization":
+            rgb8 = apply_histogram_equalization(rgb8)
+        elif stretch_type == "clahe":
+            rgb8 = apply_clahe(rgb8)
+        elif stretch_type is not None:
+            raise ValueError(f"Unknown stretch_type: {stretch_type}")
+        return fromarray(rgb8.astype(np.uint8))
 
 
 def as_image(image) -> Image:
@@ -105,6 +146,34 @@ def open_geotiff(image_path: str, bands: Optional[List[int]] = None) -> Image:
     return Image(raw.astype(np.float32), reader.crs,
                  [t.a, t.b, t.d, t.e, t.c, t.f], t, reader,
                  nodata=reader.nodata, raw_data=raw)
+
+
+def _write_geotiff(pil_image, output_path: str, crs, transform) -> None:
+    """Write a PIL image or an array as a uint8 GeoTIFF. A band-first
+    array (at most 4 bands first, a last axis longer than 4) is written
+    band-last; a PIL image is always (H, W[, C])."""
+    from_pil = not isinstance(pil_image, np.ndarray)
+    data = np.array(pil_image).astype(np.uint8)
+    if (not from_pil and data.ndim == 3 and data.shape[0] <= 4
+            and data.shape[0] < data.shape[2] and data.shape[2] > 4):
+        data = np.transpose(data, (1, 2, 0))
+    write_tiff(output_path, data, transform=transform, crs=crs)
+    print(f"Done Writing GeoTIFF at {output_path}")
+
+
+def open_binary_geotiff_as_mask(mask_path: str):
+    """Band 1 of a GeoTIFF as a boolean mask: the reference's 4-tuple
+    (mask, bbox (left, bottom, right, top), transform, profile)."""
+    reader = TiffReader(mask_path)
+    mask_array = reader.read()[:, :, 0].astype(bool)
+    transform = reader.transform
+    width, height = reader.width, reader.height
+    left, top = transform * (0, 0)
+    right, bottom = transform * (width, height)
+    profile = {"width": width, "height": height, "count": reader.spp,
+               "dtype": reader.dtype, "crs": reader.crs,
+               "transform": transform, "nodata": reader.nodata}
+    return mask_array, (left, bottom, right, top), transform, profile
 
 
 def image_from_array(img_data: np.ndarray, transform: Affine, crs=None,

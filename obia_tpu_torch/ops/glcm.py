@@ -10,6 +10,10 @@ One path: one pre-pass (:func:`bbox_minmax`) gives every object's bounding
 box and every band's quantiser bounds, then :func:`ops.glcm_kernel.glcm_sums`
 computes the exact per-(angle, object) sums of each band (the CUDA kernel on
 the card, its twin on the CPU) and :func:`glcm_props_from_sums` finishes.
+
+:func:`graycomatrix_reference` and :func:`graycoprops_reference` are host
+copies of skimage's ``graycomatrix``/``graycoprops``, for the
+``strict_reference_glcm`` hatch of ``create_objects`` only.
 """
 from __future__ import annotations
 
@@ -162,3 +166,67 @@ def segment_glcm_props_packed(image: torch.Tensor, labels: torch.Tensor,
         outs.append(glcm_props_from_sums(sums_A, asm_A, compute_asm))
     packed = torch.stack(outs).to(torch.float32).cpu().numpy()  # (B, 6, K)
     return GLCM_PROP_NAMES, np.moveaxis(packed, 0, 2)
+
+
+def graycomatrix_reference(arr: np.ndarray, distance: int = 2,
+                           angles: Sequence[float] = DEFAULT_ANGLES,
+                           levels: int = 256) -> np.ndarray:
+    """Host copy of ``skimage.feature.graycomatrix`` with ``symmetric=True,
+    normed=True`` (the reference's call): (levels, levels, 1, A) float64.
+    Only the ``strict_reference_glcm`` hatch of ``create_objects`` uses it."""
+    arr = np.asarray(arr)
+    H, W = arr.shape
+    offs = angle_offsets(distance, tuple(angles))
+    out = np.zeros((levels, levels, 1, len(offs)), np.float64)
+    for a, (dr, dc) in enumerate(offs):
+        r0, r1 = max(0, -dr), min(H, H - dr)
+        c0, c1 = max(0, -dc), min(W, W - dc)
+        if r1 <= r0 or c1 <= c0:
+            continue
+        i = arr[r0:r1, c0:c1].ravel().astype(np.int64)
+        j = arr[r0 + dr:r1 + dr, c0 + dc:c1 + dc].ravel().astype(np.int64)
+        P = np.zeros((levels, levels), np.float64)
+        np.add.at(P, (i, j), 1.0)
+        P = P + P.T  # symmetric
+        s = P.sum()
+        if s > 0:
+            P = P / s  # normed
+        out[:, :, 0, a] = P
+    return out
+
+
+def graycoprops_reference(P: np.ndarray, prop: str) -> np.ndarray:
+    """``skimage.feature.graycoprops`` over a (L, L, 1, A) normalised GLCM:
+    (1, A) float64."""
+    L = P.shape[0]
+    i = np.arange(L, dtype=np.float64)[:, None]
+    j = np.arange(L, dtype=np.float64)[None, :]
+    A = P.shape[3]
+    out = np.zeros((1, A))
+    for a in range(A):
+        G = P[:, :, 0, a]
+        if prop == "contrast":
+            out[0, a] = (G * (i - j) ** 2).sum()
+        elif prop == "dissimilarity":
+            out[0, a] = (G * np.abs(i - j)).sum()
+        elif prop == "homogeneity":
+            out[0, a] = (G / (1.0 + (i - j) ** 2)).sum()
+        elif prop == "ASM":
+            out[0, a] = (G ** 2).sum()
+        elif prop == "energy":
+            out[0, a] = np.sqrt((G ** 2).sum())
+        elif prop == "correlation":
+            px = G.sum(axis=1)
+            mu_i = (np.arange(L) * px).sum()
+            var_i = ((np.arange(L) - mu_i) ** 2 * px).sum()
+            py = G.sum(axis=0)
+            mu_j = (np.arange(L) * py).sum()
+            var_j = ((np.arange(L) - mu_j) ** 2 * py).sum()
+            if var_i < 1e-15 or var_j < 1e-15:
+                out[0, a] = 1.0
+            else:
+                out[0, a] = (((i - mu_i) * (j - mu_j) * G).sum()
+                             / np.sqrt(var_i * var_j))
+        else:
+            raise ValueError(prop)
+    return out

@@ -6,6 +6,8 @@ centre update is one ``index_add_`` over the pixels. Connectivity is then
 enforced by :mod:`obia_tpu_torch.ops.connectivity` (exact CCL, dense
 relabel, small-segment merge), all on the labels' device; the finished
 labels leave it once, as row-wise runs (:func:`download_labels_rle`).
+:func:`slic` is the skimage-compatible entry point over
+:func:`slic_dense`.
 
 Distance: D^2 = d_color^2 + (compactness / S)^2 * d_spatial^2 with
 S = sqrt(H*W / n_segments); SLICO (``slic_zero``) uses a per-cluster colour
@@ -225,6 +227,33 @@ def _slic_iterate(img: torch.Tensor, valid: torch.Tensor, gh: int, gw: int,
         mx = color_dist_max(labels, centers)
         inv_max_dc = (1.0 / (mx * mx)).reshape(gh, gw)
     return assign(centers, inv_max_dc)
+
+
+def slic(image, n_segments: int = 100, compactness: float = 10.0,
+         max_num_iter: int = 10, sigma: float = 0.0, mask=None,
+         enforce_connectivity: bool = True, min_size_factor: float = 0.5,
+         max_size_factor: float = 3.0, start_label: int = 1,
+         channel_axis: int = -1, convert2lab: Optional[bool] = None,
+         slic_zero: bool = False, spacing=None, device=None) -> np.ndarray:
+    """skimage-compatible SLIC: (H, W) int64 labels from ``start_label``;
+    with a ``mask``, masked-out pixels are 0 and labels start at
+    ``max(start_label, 1)``. A tensor runs on its own device; an array on
+    ``device``, the card when None (raising where there is none), the CPU
+    only with ``"cpu"``."""
+    from ..device import resolve_device
+    if not isinstance(image, torch.Tensor):
+        image = torch.as_tensor(np.asarray(image)).to(resolve_device(device))
+    lab, _ = slic_dense(
+        image, n_segments=n_segments, compactness=compactness,
+        max_num_iter=max_num_iter, sigma=sigma, mask=mask,
+        enforce_connectivity=enforce_connectivity,
+        min_size_factor=min_size_factor, max_size_factor=max_size_factor,
+        channel_axis=channel_axis, convert2lab=convert2lab,
+        slic_zero=slic_zero, spacing=spacing)
+    lab_np = decode_rle_labels(*download_labels_rle(lab)).astype(np.int64)
+    if mask is not None:
+        return np.where(lab_np >= 0, lab_np + max(start_label, 1), 0)
+    return lab_np + start_label
 
 
 def slic_dense(image: torch.Tensor, n_segments: int = 100,

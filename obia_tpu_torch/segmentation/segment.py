@@ -1,5 +1,6 @@
 """Segmentation facade: ``segment()`` + ``Segments`` (port of
-``obia_tpu/segmentation/segment.py``)."""
+``obia_tpu/segmentation/segment.py``). ``Segments.to_segmented_image``
+draws the label raster's boundaries on a PIL image (imports PIL)."""
 from __future__ import annotations
 
 import numpy as np
@@ -7,6 +8,17 @@ import numpy as np
 from ..handlers.geotif import as_image
 from .segment_boundaries import SegmentLayer, create_segments
 from .segment_statistics import ObjectTable, create_objects
+
+
+def boundary_mask(labels: np.ndarray) -> np.ndarray:
+    """True on pixels whose 4-neighbourhood crosses a label boundary."""
+    labels = np.asarray(labels)
+    b = np.zeros(labels.shape, bool)
+    b[:, 1:] |= labels[:, 1:] != labels[:, :-1]
+    b[:, :-1] |= labels[:, 1:] != labels[:, :-1]
+    b[1:, :] |= labels[1:, :] != labels[:-1, :]
+    b[:-1, :] |= labels[1:, :] != labels[:-1, :]
+    return b
 
 
 class Segments:
@@ -37,6 +49,19 @@ class Segments:
     def label_raster(self) -> np.ndarray:
         """The 0-based dense label raster (segment_id - 1), on the host."""
         return np.asarray(self.layer.label_raster)
+
+    def to_segmented_image(self, image):
+        """The PIL image ``image`` with the segment boundaries drawn in
+        yellow, like skimage's ``mark_boundaries`` defaults."""
+        from PIL.Image import Image as PILImage
+        from PIL.Image import fromarray
+        if not isinstance(image, PILImage):
+            raise TypeError("Input must be a PIL Image")
+        out = np.array(image).astype(np.float32)
+        if out.ndim == 2:
+            out = np.stack([out] * 3, axis=-1)
+        out[boundary_mask(self.label_raster)] = np.array([255.0, 255.0, 0.0])
+        return fromarray(np.clip(out, 0, 255).astype(np.uint8))
 
     def write_segments(self, file_path: str) -> None:
         self.objects.to_file(file_path)

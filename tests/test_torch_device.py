@@ -12,9 +12,11 @@ from obia_tpu_torch.classification import mlp as tmlp
 from obia_tpu_torch.geometry.affine import Affine
 from obia_tpu_torch.handlers.geotif import image_from_array
 from obia_tpu_torch.ops import quickshift as tqs
+from obia_tpu_torch.ops import slic as tslic
 from obia_tpu_torch.parallel.mesh import make_mesh
 from obia_tpu_torch.segmentation import segment as tsegment
 from obia_tpu_torch.segmentation import segment_boundaries as tsb
+from obia_tpu_torch.segmentation import segment_statistics as tstats
 from obia_tpu_torch.utils import cost as tcost
 from obia_tpu_torch.utils import seeds as tseeds
 
@@ -128,6 +130,34 @@ def _run_canopy(step):
     return run
 
 
+def _objects(pointcloud):
+    """create_objects on a Features table, which carries no label tensor;
+    with ``pointcloud``, a cloud read from a LAS file too."""
+    def run(device):
+        import tempfile
+
+        from obia_tpu_torch.geometry.geom import box
+        from obia_tpu_torch.io.las import write_las
+        from obia_tpu_torch.segmentation.segment_statistics import \
+            create_objects
+        from obia_tpu_torch.vector.features import Features
+        table = Features({"segment_id": [1, 2]},
+                         [box(0, 0, 14, 24), box(14, 0, 28, 24)],
+                         crs="EPSG:32633")
+        if not pointcloud:
+            return create_objects(table, _image(), **device)
+        rng = np.random.default_rng(6)
+        with tempfile.TemporaryDirectory() as d:
+            write_las(f"{d}/pts.las", {"X": rng.uniform(0, 28, 50),
+                                       "Y": rng.uniform(0, 24, 50),
+                                       "Z": rng.uniform(0, 9, 50)},
+                      crs="EPSG:32633")
+            return create_objects(table, _image(), pointcloud=f"{d}/pts.las",
+                                  calculate_structural=True,
+                                  voxel_resolution=1.0, **device)
+    return run
+
+
 def _quickshift_image():
     return np.random.default_rng(3).random((12, 14, 3)).astype(np.float32)
 
@@ -162,6 +192,13 @@ ENTRY_POINTS = {
         np.random.default_rng(4).random((9, 11)), **device),
     "texture_entropy": lambda device: tcost.texture_entropy(
         np.random.default_rng(5).random((9, 11)), **device),
+    "slic": lambda device: tslic.slic(_quickshift_image(), n_segments=4,
+                                      **device),
+    "create_objects(Features)": _objects(pointcloud=False),
+    "create_objects(pointcloud=path)": _objects(pointcloud=True),
+    "calculate_textural_stats": lambda device:
+        tstats.calculate_textural_stats(
+            np.random.default_rng(7).random((2, 5, 6)), [0, 1], **device),
     "quickshift": lambda device: tqs.quickshift(
         _quickshift_image(), kernel_size=1, max_dist=3, **device),
     "quickshift_tree": lambda device: tqs.quickshift_tree(

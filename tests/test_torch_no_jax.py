@@ -2,8 +2,10 @@
 ``obia_tpu`` unavailable, as on a machine that has only torch, numpy and
 scipy: the port imports none of them on its main paths (SLIC + forest,
 quickshift + MLP, ``classify`` with the MLP and Kernel SHAP on object
-tables, the sharded mosaic on a 2 x 4 CPU mesh, tiled segmentation with the
-``sigma`` pre-blur, the canopy seed and cost-surface workflow), and never
+tables, ``create_objects`` on a filtered table and on a GeoPackage read
+back (the rasterise path) with a LAS point cloud, the sharded mosaic on a
+2 x 4 CPU mesh, tiled segmentation with the ``sigma`` pre-blur, the canopy
+seed and cost-surface workflow), and never
 loads jax, flax, optax or click (the CLI module imports without it). Its sources and ``chip_smoke.py`` import neither jax
 nor ``obia_tpu``."""
 import subprocess
@@ -67,6 +69,25 @@ SCRIPT = textwrap.dedent("""
                              device="cpu")
     clf.fit(Xq, Xq[:, 0] > np.median(Xq[:, 0]))
     assert np.allclose(clf.predict_proba(Xq).sum(1), 1.0, atol=1e-5)
+
+    from obia_tpu_torch.io.las import write_las
+    from obia_tpu_torch.segmentation.segment_statistics import create_objects
+    from obia_tpu_torch.vector.features import read_features
+    rng2 = np.random.default_rng(1)
+    write_las("pts.las", {"X": rng2.uniform(0, 80, 500),
+                          "Y": rng2.uniform(0, 64, 500),
+                          "Z": rng2.uniform(0, 20, 500),
+                          "Intensity": rng2.integers(0, 999, 500)},
+              point_format=6, crs="EPSG:32633")
+    s.layer.to_file("segments.gpkg")
+    o = create_objects(read_features("segments.gpkg"), image,
+                       pointcloud="pts.las", calculate_structural=True,
+                       calculate_radiometric=True, voxel_resolution=1.0,
+                       device="cpu")
+    assert len(o) == len(t) and np.isfinite(o["ch"]).any()
+    half = create_objects(t.take(np.arange(0, len(t), 2)), image,
+                          strict_reference_glcm=True, textural_bands=[0])
+    assert np.allclose(half["b0_mean"], t["b0_mean"][::2], rtol=1e-6)
 
     from obia_tpu_torch.classification.classify import classify
     training = t.with_columns(
