@@ -147,7 +147,32 @@ any failure raises and exits non-zero:
    dict input, on points that LAS stores exactly; ``strict_reference_glcm``
    with bands 0/3/6 on a ``Features`` table, on the card and on the CPU:
    the rasterised labels and the strict columns equal, NaNs included;
-   ``slic()`` on the card equal to ``slic_dense``'s labels + 1.
+   ``slic()`` on the card equal to ``slic_dense``'s labels + 1;
+20. detection at full width: ``build_detection_model(num_classes=2,
+   in_channels=10)`` (ResNet-50 (3, 4, 6, 3) at width 64, FPN 256, P3-P7,
+   9 anchors; 36.4 M parameters) on the card, ``train_model`` for 2 epochs
+   of ``DataLoader(TreeDetectionDataset(..., get_transforms(True)),
+   batch_size=2, seed=0)`` over 8 seeded crown tiles of 512^2 x 10 bands
+   (uint16 GeoTIFFs, ``crown_raster``) with a checkpoint an epoch: each
+   step's time (host clock, the loss read each step), the peak device
+   memory, each epoch's loss (finite), ``epoch_2.npz`` loaded back equal on
+   every tensor, and one step traced (kernels, device busy and idle);
+   ``predict`` on a 4096^2 x 10 uint16 scene, cold and warm, then with the
+   stages synced (read, scale, forward, decode, NMS) at scores >= 0.5 and
+   >= 0.05, every box inside the raster; the scene's uint8 raster scaled
+   on the card equal to numpy's float64 scaling; the forward alone by CUDA
+   events and traced; ``evaluate_model`` on the tiles;
+21. (a) the trained model on the card and a copy on the CPU, 2 x 10 x
+   256^2 inputs: eval class logits and box deltas, the running statistics
+   after one train-mode forward and one train step's loss within 1e-4 of
+   their largest magnitudes; the same train step in float64 on both, loss
+   and every gradient within 1e-9; the float32 gradients measured against
+   the CPU's float64 ones, the card's relative L2 error within 4x the
+   CPU's (float32 train-mode gradients are ill-conditioned here: both are
+   a few % from float64); (b) tests/test_detection.py:243's overfit run
+   on the card (two 128^2 scenes, width 8, FPN 32, stages (1, 1, 1, 1),
+   Adam 2e-3, 400 steps): the loss below 10% of its first value and
+   AP@0.5 >= 0.9 through ``evaluate_model``.
 
 After the build a line gives the quickshift kernels' registers, spilled
 bytes and pixels a thread (P) as the library reports them. The last two
@@ -207,6 +232,14 @@ CANOPY_CROSS_SIZE = 512
 CANOPY_PITCH = 20       # px between crown centres: ~10.5 k crowns at 2048^2
 N_POINTS = 2 * SIZE * SIZE  # USGS 3DEP QL2: 2 points/m^2 over 4096^2 m
 OBJ_SMALL_SIZE = 256
+DET_TILES = 8           # training tiles, 512^2 x 10 bands (uint16)
+DET_TILE = 512
+DET_BANDS = 10          # build_detection_model's default in_channels
+DET_SCENE = 4096        # config 4's scene size
+DET_PITCH = 32          # px between crown centres
+DET_CROSS = 256         # card vs CPU at full width
+DET_SMALL = dict(num_classes=2, in_channels=3, backbone_width=8,
+                 fpn_channels=32, stage_sizes=(1, 1, 1, 1))
 PC_COLUMNS = ("pai", "fhd", "ch", "mean_intensity", "variance_intensity")
 HBM_BYTES_PER_MS = 3.35e9   # H100 SXM: 3.35 TB/s
 FP32_OPS_PER_MS = 67e9      # H100 SXM: 67 TFLOP/s float32 outside the MMAs
@@ -1494,6 +1527,30 @@ def trace_kernels(log_dir: str) -> dict:
     return busy
 
 
+def trace_span(log_dir: str, top: int = 4) -> str:
+    """One line on the Chrome trace in ``log_dir``: its CUDA kernels'
+    count, their summed device time, the span from the first kernel's
+    start to the last one's end, the device's idle share of that span, and
+    the ``top`` kernels by device time."""
+    (name,) = os.listdir(log_dir)
+    with open(os.path.join(log_dir, name)) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("cat") == "kernel"]
+    if not events:
+        raise AssertionError(f"no CUDA kernel in the trace {log_dir}")
+    busy = sum(float(e["dur"]) for e in events)
+    t0 = min(float(e["ts"]) for e in events)
+    t1 = max(float(e["ts"]) + float(e["dur"]) for e in events)
+    by_name = {}
+    for e in events:
+        by_name[e["name"]] = by_name.get(e["name"], 0.0) + float(e["dur"])
+    heads = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
+    return (f"{len(events)} kernels, {busy / 1000:.1f} ms busy of a "
+            f"{(t1 - t0) / 1000:.1f} ms span (idle {1 - busy / (t1 - t0):.1%})"
+            f"; top: " + "; ".join(f"{n[:60]} {v / 1000:.1f} ms"
+                                   for n, v in heads))
+
+
 def compare_pc_stats(got: dict, want: dict, what: str) -> None:
     """Point-cloud columns card vs CPU: CH and the NaN slots equal, the
     rest within rtol 1e-12."""
@@ -1700,6 +1757,424 @@ def objects_small_phase(seed: int) -> None:
         raise AssertionError("slic() != slic_dense labels + 1")
     log(f"  slic() on the card: {k} segments, labels equal to slic_dense's "
         "+ 1")
+
+
+def crown_raster(size: int, bands: int, seed: int):
+    """A forest plot at 1 m: crowns on a jittered grid of pitch
+    ``DET_PITCH`` px with radii 5-12 px over soil, as ``bands`` uint16
+    bands (soil and leaf reflectance per band plus noise), and each
+    crown's box (x0, y0, x1, y1) at 1.5 radii, clipped to the raster."""
+    rng = np.random.default_rng(seed)
+    g = np.arange(DET_PITCH // 2, size, DET_PITCH, dtype=np.float64)
+    cy, cx = (a.ravel() for a in np.meshgrid(g, g, indexing="ij"))
+    jit = DET_PITCH / 4
+    cy = cy + rng.uniform(-jit, jit, cy.size)
+    cx = cx + rng.uniform(-jit, jit, cx.size)
+    radius = rng.uniform(5.0, 12.0, cy.size)
+    veg = np.zeros((size, size), np.float32)
+    for y, x, r in zip(cy, cx, radius):
+        reach = int(2 * r) + 1
+        r0, r1 = max(0, int(y) - reach), min(size, int(y) + reach + 1)
+        c0, c1 = max(0, int(x) - reach), min(size, int(x) + reach + 1)
+        yy, xx = np.mgrid[r0:r1, c0:c1]
+        k = np.exp(-((yy - y) ** 2 + (xx - x) ** 2) / (2 * (r / 1.5) ** 2))
+        np.maximum(veg[r0:r1, c0:c1], k.astype(np.float32),
+                   out=veg[r0:r1, c0:c1])
+    soil = rng.uniform(300, 1000, bands)
+    leaf = rng.uniform(200, 3200, bands)
+    img = np.empty((size, size, bands), np.uint16)
+    for b in range(bands):
+        band = soil[b] + (leaf[b] - soil[b]) * veg + rng.normal(
+            0, 25, veg.shape).astype(np.float32)
+        img[:, :, b] = np.clip(band, 1, 65535).astype(np.uint16)
+    half = 1.5 * radius
+    boxes = np.stack([cx - half, cy - half, cx + half, cy + half], axis=1)
+    boxes = np.clip(boxes, 0, size).round(1)
+    return img, boxes
+
+
+def conv_flops(model, size: int, probe: int = 256) -> int:
+    """Multiply-add operations x 2 of every convolution in one forward of
+    a size^2 image, counted by hooks on a forward at probe^2 and scaled by
+    (size / probe)^2: exact when both are multiples of 128 (each level's
+    map then scales by the same factor)."""
+    import torch
+    total = [0]
+
+    def hook(m, inp, out):
+        kh, kw = m.kernel_size
+        total[0] += 2 * out.numel() * (m.in_channels // m.groups) * kh * kw
+
+    hooks = [m.register_forward_hook(hook) for m in model.modules()
+             if isinstance(m, torch.nn.Conv2d)]
+    try:
+        with torch.inference_mode():
+            model.eval()(torch.zeros(1, model.in_channels, probe, probe,
+                                     device=model.device))
+    finally:
+        for h in hooks:
+            h.remove()
+    return total[0] * (size // probe) ** 2
+
+
+def check_boxes(res: dict, size: int) -> None:
+    """predict's output: finite scores, one label a box, every box inside
+    the size x size raster."""
+    boxes = res["boxes"]
+    if not (np.isfinite(res["scores"]).all() and len(res["labels"]) ==
+            len(boxes) == len(res["scores"]) and boxes.shape[1:] == (4,)):
+        raise AssertionError("predict's output is malformed")
+    if len(boxes) and not ((boxes >= 0).all() and (boxes <= size).all()):
+        raise AssertionError("a predicted box leaves the raster")
+
+
+def write_detection_tiles(root: str, n: int, size: int, seed: int) -> str:
+    """``n`` crown tiles as uint16 GeoTIFFs and their ``annotations.json``
+    (file_name, boxes, labels: the reference's layout). Returns the
+    annotations' path."""
+    from obia_tpu_torch.geometry.affine import Affine
+    from obia_tpu_torch.io.tiff import write_tiff
+    ann = {}
+    for i in range(n):
+        img, boxes = crown_raster(size, DET_BANDS, seed + i)
+        name = f"tile_{i:02d}.tif"
+        write_tiff(os.path.join(root, name), img,
+                   transform=Affine(1.0, 0.0, 500000.0 + i * size, 0.0,
+                                    -1.0, 5100000.0),
+                   crs="EPSG:32633", compression="none")
+        ann[f"tile_{i:02d}"] = {"file_name": name,
+                                "boxes": boxes.tolist(),
+                                "labels": [1] * len(boxes)}
+    path = os.path.join(root, "annotations.json")
+    with open(path, "w") as f:
+        json.dump(ann, f)
+    return path
+
+
+class StepClock:
+    """A loader for ``train_model`` that reads each epoch's batches first
+    and then times each step on the host clock: from one batch handed out
+    to the next (``train_model`` reads each step's loss, which waits for
+    the card)."""
+
+    def __init__(self, loader):
+        self.loader = loader
+        self.epochs = []
+
+    def __len__(self):
+        return len(self.loader)
+
+    def __iter__(self):
+        import torch
+        batches = list(self.loader)
+        times = []
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for batch in batches:
+            yield batch
+            now = time.perf_counter()
+            times.append(now - t)
+            t = now
+        self.epochs.append(times)
+
+
+def detection_phase(root: str, card: str, seed: int):
+    """Phase 20: the full-width RetinaNet (``build_detection_model(
+    num_classes=2, in_channels=10)``) trained for 2 epochs of 4 steps on 8
+    crown tiles, its checkpoint read back, ``predict`` on a 4096^2 x 10
+    scene (cold, warm, and with the stages synced) and ``evaluate_model`` on
+    the tiles. Returns the trained model."""
+    import contextlib
+    import copy
+    import io
+
+    import torch
+
+    from obia_tpu_torch import telemetry
+    from obia_tpu_torch.detection import (build_detection_model, predict,
+                                          train_model)
+    from obia_tpu_torch.detection.train import make_train_step
+    from obia_tpu_torch.detection.dataset import (DataLoader,
+                                                  TreeDetectionDataset)
+    from obia_tpu_torch.detection.metrics import evaluate_model
+    from obia_tpu_torch.detection.models import load_detection_checkpoint
+    from obia_tpu_torch.detection.utils import get_transforms
+    from obia_tpu_torch.geometry.affine import Affine
+    from obia_tpu_torch.io.tiff import write_tiff
+
+    t0 = time.perf_counter()
+    ann = write_detection_tiles(root, DET_TILES, DET_TILE, seed)
+    n_boxes = sum(len(v["boxes"]) for v in json.load(open(ann)).values())
+    model = build_detection_model(num_classes=2, in_channels=DET_BANDS,
+                                  seed=seed)
+    n_par = sum(p.numel() for p in model.parameters())
+    log(f"phase 20: {DET_TILES} tiles {DET_TILE}^2 x {DET_BANDS} bands, "
+        f"{n_boxes} boxes; RetinaNet ResNet-50 (3, 4, 6, 3) width 64, FPN "
+        f"256, {n_par} parameters, built on {model.device} "
+        f"({time.perf_counter() - t0:.1f} s with the tiles)")
+    ds = TreeDetectionDataset(root, ann, transforms=get_transforms(True))
+    clock = StepClock(DataLoader(ds, batch_size=2, seed=0))
+    ckpt = os.path.join(root, "ckpt")
+    torch.cuda.reset_peak_memory_stats()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        train_model(model, clock, num_epochs=2, checkpoint_dir=ckpt)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses = [float(ln.split("Loss: ")[1])
+              for ln in out.getvalue().splitlines() if "Loss: " in ln]
+    for ln in out.getvalue().splitlines():
+        log(f"  {ln}")
+    steps = [s * 1000 for e in clock.epochs for s in e]
+    warm = float(np.median(clock.epochs[1])) * 1000
+    step_ops = 3 * 2 * conv_flops(model, DET_TILE)
+    log(f"  train steps (ms, batch 2 x {DET_TILE}^2, synced): "
+        f"{', '.join(f'{s:.1f}' for s in steps)}; warm step (median of "
+        f"epoch 2) {warm:.1f} ms, ~{step_ops / 1e12:.3f} TFLOP of "
+        f"convolutions (3x the forward's), {step_ops / warm / 1e9:.1f} "
+        f"TFLOP/s; peak device memory {peak:.2f} GiB ({card})")
+    if len(losses) != 2 or not np.isfinite(losses).all():
+        raise AssertionError(f"epoch losses {losses}")
+    back = load_detection_checkpoint(os.path.join(ckpt, "epoch_2.npz"),
+                                     num_classes=2, in_channels=DET_BANDS)
+    sd, sb = model.state_dict(), back.state_dict()
+    if set(sd) != set(sb) or not all(torch.equal(sd[k], sb[k]) for k in sd):
+        raise AssertionError("epoch_2.npz does not load back equal")
+    log(f"  epoch_2.npz loads into a fresh model equal on all {len(sd)} "
+        "tensors")
+    del back
+    twin = copy.deepcopy(model)
+    step = make_train_step(twin, torch.optim.Adam(twin.parameters(),
+                                                  lr=1e-4))
+    images, targets = next(iter(DataLoader(ds, batch_size=2, seed=1)))
+    step(images, targets)
+    torch.cuda.synchronize()
+    with telemetry.trace(os.path.join(root, "trace_step")):
+        step(images, targets)
+    log(f"  one traced train step: "
+        f"{trace_span(os.path.join(root, 'trace_step'))}")
+    del twin, step
+
+    scene, _ = crown_raster(DET_SCENE, DET_BANDS, seed + 100)
+    path = os.path.join(root, "scene.tif")
+    write_tiff(path, scene, transform=Affine(1.0, 0.0, 500000.0, 0.0, -1.0,
+                                             5100000.0),
+               crs="EPSG:32633", compression="none")
+    del scene
+    walls = []
+    for what in ("cold", "warm"):
+        t0 = time.perf_counter()
+        res = predict(model, path)
+        walls.append(time.perf_counter() - t0)
+        check_boxes(res, DET_SCENE)
+    log(f"  predict {DET_SCENE}^2 x {DET_BANDS} (score >= 0.5): cold "
+        f"{walls[0]:.3f} s, warm {walls[1]:.3f} s, {len(res['boxes'])} "
+        f"boxes ({card})")
+    for thr in (0.5, 0.05):
+        telemetry.reset()
+        telemetry.enable(True)
+        try:
+            t0 = time.perf_counter()
+            res = predict(model, path, score_threshold=thr)
+            synced = time.perf_counter() - t0
+        finally:
+            telemetry.enable(False)
+        check_boxes(res, DET_SCENE)
+        log(f"  predict, score >= {thr}, stages synced: {synced:.3f} s: "
+            + ", ".join(f"{k} {1000 * v['total_s']:.1f} ms"
+                        for k, v in telemetry.report().items())
+            + f"; {len(res['boxes'])} boxes")
+
+    from obia_tpu_torch.detection.predict import scale_to_uint8
+    from obia_tpu_torch.io.tiff import TiffReader
+    raw = TiffReader(path).read()
+    u8 = scale_to_uint8(raw, "cuda")
+    lo, hi = float(raw.min()), float(raw.max())
+    want = np.clip(255.0 * (raw.astype(np.float64) - lo) / (hi - lo + 1e-8),
+                   0, 255).astype(np.uint8)
+    if not np.array_equal(u8.cpu().numpy(), want):
+        raise AssertionError("predict's uint8 raster on the card != numpy's")
+    log(f"  predict's uint8 raster scaled on the card equal to numpy's "
+        f"float64 scaling on the host ({DET_SCENE}^2 x {DET_BANDS})")
+    del raw, want
+    x = u8.to(torch.float32).permute(2, 0, 1)[None].contiguous()
+    del u8
+    model.eval()
+    with torch.inference_mode():
+        fwd = time_ms(lambda: model(x), 3)
+        with telemetry.trace(os.path.join(root, "trace_forward")):
+            model(x)
+    del x
+    ops = conv_flops(model, DET_SCENE)
+    log(f"  forward alone at {DET_SCENE}^2 (CUDA events, mean of 3): "
+        f"{fwd:.1f} ms ({card}); its convolutions {ops / 1e12:.3f} TFLOP: "
+        f"{ops / fwd / 1e9:.1f} TFLOP/s, {ops / FP32_OPS_PER_MS / fwd:.1%} "
+        f"of the 67 TFLOP/s float32 peak (bound {ops / FP32_OPS_PER_MS:.1f} "
+        f"ms); traced: {trace_span(os.path.join(root, 'trace_forward'))}")
+    t0 = time.perf_counter()
+    ev = evaluate_model(model, TreeDetectionDataset(root, ann))
+    log(f"  evaluate_model on the {DET_TILES} tiles: AP@0.5 {ev['AP']:.4f}, "
+        f"{ev['n_predictions']} predictions of {ev['n_ground_truth']} "
+        f"crowns ({time.perf_counter() - t0:.2f} s)")
+    return model
+
+
+def _gap(a, b) -> float:
+    """max |a - b| over max |b| (b the reference side)."""
+    b = b.detach().cpu().double()
+    return float((a.detach().cpu().double() - b).abs().max()
+                 / b.abs().max().clamp_min(1e-30))
+
+
+def _l2_gap(a: dict, b: dict) -> float:
+    """||a - b|| / ||b|| over every tensor of two gradient dicts."""
+    num = sum(float((a[k].detach().cpu().double()
+                     - b[k].detach().cpu().double()).pow(2).sum())
+              for k in b)
+    den = sum(float(b[k].detach().cpu().double().pow(2).sum()) for k in b)
+    return math.sqrt(num / den)
+
+
+def detection_cross_check(model) -> None:
+    """Phase 21 (a): the trained full-width model on the card and a copy
+    on the CPU, on the same 2 x 10 x 256^2 inputs: the eval forward, the
+    running statistics after one train-mode forward, and one train step's
+    loss and gradients, in float32 and in float64 (the float64 CPU
+    gradient is the reference both float32 gradients are measured
+    against)."""
+    import torch
+
+    from obia_tpu_torch.detection.models import (detection_model_from_jax,
+                                                 detection_state_to_jax_tree)
+    from obia_tpu_torch.detection.train import batch_loss
+    tree = detection_state_to_jax_tree(model)
+    cfg = dict(num_classes=2, in_channels=DET_BANDS)
+
+    def pair(dtype=torch.float32):
+        return [detection_model_from_jax(tree["params"], tree["batch_stats"],
+                                         device=d, **cfg).to(dtype)
+                for d in ("cuda", "cpu")]
+
+    rng = np.random.default_rng(21)
+    x = torch.as_tensor((rng.random((2, DET_BANDS, DET_CROSS, DET_CROSS))
+                         * 255).astype(np.float32))
+    x[:, :, 60:110, 80:130] *= 0.3
+    boxes = [torch.tensor([[80.0, 60.0, 130.0, 110.0],
+                           [10.0, 150.0, 40.0, 190.0]]),
+             torch.tensor([[80.0, 60.0, 130.0, 110.0]])]
+    labels = [torch.tensor([1, 1]), torch.tensor([1])]
+
+    def step(m):
+        """One train step's loss and gradients on the model's device."""
+        dt = next(m.parameters()).dtype
+        loss = batch_loss(m, x.to(m.device, dt),
+                          [b.to(m.device, dt) for b in boxes],
+                          [lb.to(m.device) for lb in labels],
+                          (DET_CROSS, DET_CROSS))
+        loss.backward()
+        return float(loss.detach()), {n: p.grad.detach().cpu()
+                                      for n, p in m.named_parameters()}
+
+    card, cpu = pair()
+    with torch.no_grad():
+        outs = [m.eval()(x.to(m.device)) for m in (card, cpu)]
+        fwd = [_gap(a, b) for a, b in zip(*outs)]
+        for m in (card, cpu):
+            m.train()(x.to(m.device))
+    cpu_bufs = dict(cpu.named_buffers())
+    bufs = {n: _gap(b, cpu_bufs[n]) for n, b in card.named_buffers()}
+    mean_gap = max(v for n, v in bufs.items() if n.endswith("running_mean"))
+    var_gap = max(v for n, v in bufs.items() if n.endswith("running_var"))
+    (l32c, g32c), (l32p, g32p) = (step(m) for m in pair())
+    (l64c, g64c), (l64p, g64p) = (step(m) for m in pair(torch.float64))
+    del card, cpu, outs
+    loss_gap = abs(l32c - l32p) / abs(l32p)
+    loss64 = abs(l64c - l64p) / abs(l64p)
+    grad64 = max(_gap(g64c[n], g64p[n]) for n in g64p)
+    per = {who: {n: _gap(g[n], g64p[n]) for n in g64p}
+           for who, g in (("card", g32c), ("cpu", g32p))}
+    worst = {who: max(v.items(), key=lambda kv: kv[1])
+             for who, v in per.items()}
+    l2 = {who: _l2_gap(g, g64p) for who, g in (("card", g32c),
+                                                ("cpu", g32p))}
+    l2_32 = _l2_gap(g32c, g32p)
+    log(f"phase 21 (a), full width, 2 x {DET_BANDS} x {DET_CROSS}^2, card vs "
+        f"CPU (gaps over each tensor's largest magnitude): eval class "
+        f"logits {fwd[0]:.2e}, box deltas {fwd[1]:.2e}; running means "
+        f"{mean_gap:.2e}, variances {var_gap:.2e}; train-step loss "
+        f"{loss_gap:.2e} (float64 {loss64:.2e}); gradients in float64 "
+        f"{grad64:.2e}")
+    log(f"  float32 gradients against the CPU's float64: card worst "
+        f"{worst['card'][1]:.2e} ({worst['card'][0]}), CPU worst "
+        f"{worst['cpu'][1]:.2e} ({worst['cpu'][0]}); relative L2 over all "
+        f"gradients card {l2['card']:.2e}, CPU {l2['cpu']:.2e}; card vs "
+        f"CPU float32 {l2_32:.2e}")
+    bars = dict(forward=(max(fwd), 1e-4), running_var=(var_gap, 1e-4),
+                running_mean=(mean_gap, 1e-4), loss=(loss_gap, 1e-4),
+                float64=(max(loss64, grad64), 1e-9),
+                float32_l2=(l2["card"], max(4 * l2["cpu"], 1e-4)))
+    for what, (got, bar) in bars.items():
+        if not got <= bar:
+            raise AssertionError(f"card vs CPU {what}: {got:.3e} > {bar}")
+
+
+def detection_overfit_on_card() -> None:
+    """Phase 21 (b): tests/test_detection.py:243's overfit run on the card
+    (two 128^2 scenes, width 8, FPN 32, stages (1, 1, 1, 1), Adam 2e-3, 400
+    steps): the loss below 10% of its first value, AP@0.5 >= 0.9 through
+    ``evaluate_model``."""
+    import torch
+
+    from obia_tpu_torch.detection import build_detection_model
+    from obia_tpu_torch.detection.metrics import evaluate_model
+    from obia_tpu_torch.detection.train import make_train_step
+    S = 128
+    imgs, targets = [], []
+    for seed, coords in ((0, [(20, 30), (70, 80)]), (1, [(40, 16), (90, 60)])):
+        r = np.random.default_rng(seed)
+        img = r.normal(0.0, 0.05, (S, S, 3)).astype(np.float32)
+        for (x0, y0) in coords:
+            img[y0:y0 + 24, x0:x0 + 24] += 1.0
+        imgs.append(np.transpose(img, (2, 0, 1)))
+        targets.append({"boxes": np.array([[x0, y0, x0 + 24, y0 + 24]
+                                           for x0, y0 in coords],
+                                          np.float32),
+                        "labels": np.array([1, 1], np.int64)})
+
+    class Scenes:
+        def __len__(self):
+            return 2
+
+        def __getitem__(self, i):
+            return imgs[i], targets[i]
+
+    model = build_detection_model(seed=0, image_size=(S, S), **DET_SMALL)
+    step = make_train_step(model, torch.optim.Adam(model.parameters(),
+                                                   lr=2e-3))
+    t0 = time.perf_counter()
+    losses = [float(step(imgs, targets)) for _ in range(400)]
+    secs = time.perf_counter() - t0
+    res = evaluate_model(model, Scenes(), score_threshold=0.05)
+    log(f"phase 21 (b), overfit on the card: loss {losses[0]:.4f} -> "
+        f"{losses[-1]:.6f} in 400 steps ({1000 * secs / 400:.2f} ms a "
+        f"step), AP@0.5 {res['AP']:.4f} ({res['n_predictions']} "
+        f"predictions of {res['n_ground_truth']})")
+    if not losses[-1] < 0.1 * losses[0] or res["AP"] < 0.9:
+        raise AssertionError(f"overfit bar missed: {losses[0]} -> "
+                             f"{losses[-1]}, AP {res['AP']}")
+
+
+def detection_phases(seed: int, card: str) -> None:
+    """Phases 20-21 in a scratch directory."""
+    import shutil
+    import tempfile
+    root = tempfile.mkdtemp(prefix="obia_detection_")
+    try:
+        model = detection_phase(root, card, seed)
+        detection_cross_check(model)
+        del model
+        detection_overfit_on_card()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
 
 
 def qs_scenes():
@@ -2162,6 +2637,9 @@ def main() -> None:
     # -- 18-19. create_objects' full surface ---------------------------------
     rasterised = objects_phase(image, s, card, seed)
     objects_small_phase(seed)
+
+    # -- 20-21. detection: train and predict at full width, then card checks --
+    detection_phases(seed, card)
 
     log(card_line())
     qs_r, qs_md = 15, QS_KW["max_dist"]  # as qs_time measures

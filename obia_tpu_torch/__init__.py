@@ -21,6 +21,7 @@ built with g++ at first use).
     from obia_tpu_torch.utils.utils import label_segments
     from obia_tpu_torch.utils.tiling import create_tiled_segments
     from obia_tpu_torch.parallel.mosaic import segment_mosaic
+    from obia_tpu_torch.detection import build_detection_model, predict
 
 Importing the package switches TF32 off for float32 matmuls and cuDNN
 convolutions (``torch.backends.cuda.matmul.allow_tf32`` and

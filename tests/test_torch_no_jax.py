@@ -5,8 +5,9 @@ quickshift + MLP, ``classify`` with the MLP and Kernel SHAP on object
 tables, ``create_objects`` on a filtered table and on a GeoPackage read
 back (the rasterise path) with a LAS point cloud, the sharded mosaic on a
 2 x 4 CPU mesh, tiled segmentation with the ``sigma`` pre-blur, the canopy
-seed and cost-surface workflow), and never
-loads jax, flax, optax or click (the CLI module imports without it). Its sources and ``chip_smoke.py`` import neither jax
+seed and cost-surface workflow, the detection subsystem: build, train
+on GeoTIFF tiles, predict), and never loads jax, flax, optax, click,
+tqdm, matplotlib or OpenCV (the CLI module imports without click). Its sources and ``chip_smoke.py`` import neither jax
 nor ``obia_tpu``."""
 import subprocess
 import sys
@@ -19,7 +20,7 @@ SCRIPT = textwrap.dedent("""
     import builtins
     import sys
     BLOCKED = ("jax", "jaxlib", "pandas", "sklearn", "PIL", "flax", "optax",
-               "obia_tpu", "click")
+               "obia_tpu", "click", "tqdm", "matplotlib", "cv2")
     real_import = builtins.__import__
 
     def blocked(name, *a, **k):
@@ -143,7 +144,7 @@ CANOPY = textwrap.dedent("""
     import builtins
     import sys
     BLOCKED = ("jax", "jaxlib", "pandas", "sklearn", "PIL", "flax", "optax",
-               "obia_tpu", "click", "cv2")
+               "obia_tpu", "click", "tqdm", "matplotlib", "cv2")
     real_import = builtins.__import__
 
     def blocked(name, *a, **k):
@@ -193,14 +194,94 @@ def test_canopy_runs_without_jax_pandas_sklearn_pil(tmp_path):
     assert "CANOPY_OK" in proc.stdout
 
 
+DETECTION = textwrap.dedent("""
+    import builtins
+    import sys
+    BLOCKED = ("jax", "jaxlib", "pandas", "sklearn", "PIL", "flax", "optax",
+               "obia_tpu", "click", "tqdm", "matplotlib", "cv2")
+    real_import = builtins.__import__
+
+    def blocked(name, *a, **k):
+        if name.split(".")[0] in BLOCKED:
+            raise ImportError(f"No module named {name!r} (blocked)")
+        return real_import(name, *a, **k)
+
+    builtins.__import__ = blocked
+
+    import json
+    import os
+    import numpy as np
+    import obia_tpu_torch.utils.training
+    from obia_tpu_torch.detection import (build_detection_model, predict,
+                                          train_model)
+    from obia_tpu_torch.detection.dataset import (DataLoader,
+                                                  TreeDetectionDataset)
+    from obia_tpu_torch.detection.metrics import evaluate_model
+    from obia_tpu_torch.detection.utils import get_transforms
+    from obia_tpu_torch.geometry.affine import Affine
+    from obia_tpu_torch.io.tiff import write_tiff
+
+    rng = np.random.default_rng(0)
+    ann = {}
+    for i in range(4):
+        img = (rng.random((96, 112, 4)) * 3000).astype(np.uint16)
+        x0, y0 = (int(v) for v in rng.integers(8, 60, 2))
+        img[y0:y0 + 24, x0:x0 + 24] += 30000
+        write_tiff(f"t{i}.tif", img, transform=Affine(1, 0, 0, 0, -1, 96))
+        ann[str(i)] = {"file_name": f"t{i}.tif", "labels": [1],
+                       "boxes": [[x0, y0, x0 + 24, y0 + 24]]}
+    with open("annotations.json", "w") as f:
+        json.dump(ann, f)
+    model = build_detection_model(num_classes=2, in_channels=4,
+                                  backbone_width=8, fpn_channels=32,
+                                  stage_sizes=(1, 1, 1, 1), device="cpu")
+    ds = TreeDetectionDataset(".", "annotations.json",
+                              transforms=get_transforms(True))
+    train_model(model, DataLoader(ds, batch_size=2, seed=0), num_epochs=1,
+                checkpoint_dir="ckpt")
+    assert os.path.exists(os.path.join("ckpt", "epoch_1.npz"))
+    out = predict(model, "t0.tif", score_threshold=0.0)
+    assert len(out["boxes"]) > 0 and out["boxes"][:, 2].max() <= 112
+    res = evaluate_model(model, TreeDetectionDataset(".",
+                                                     "annotations.json"))
+    assert res["n_images"] == 4 and 0.0 <= res["AP"] <= 1.0
+    for mod in BLOCKED:
+        assert mod not in sys.modules, mod
+    print("DETECTION_OK", len(out["boxes"]))
+""")
+
+
+def test_detection_runs_without_jax_pandas_sklearn_pil(tmp_path):
+    """The detection path at width 8 on the CPU: build, one epoch of
+    ``train_model`` on GeoTIFF tiles with a checkpoint, ``predict`` on a
+    GeoTIFF, ``evaluate_model``, with PIL, matplotlib, tqdm and OpenCV
+    blocked too."""
+    proc = subprocess.run(
+        [sys.executable, "-c", DETECTION], cwd=tmp_path, text=True,
+        capture_output=True,
+        env={"PYTHONPATH": str(REPO), "PATH": "/usr/bin:/bin",
+             "HOME": str(tmp_path)},
+        timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "DETECTION_OK" in proc.stdout
+
+
 def test_port_sources_never_import_jax():
+    """No source of the port, nor chip_smoke.py, imports jax, flax, optax,
+    tqdm or the JAX package; PIL, matplotlib and OpenCV only inside a
+    function (a machine with only torch, numpy and scipy has none of
+    them)."""
     bad = []
     sources = [*(REPO / "obia_tpu_torch").rglob("*.py"),
                REPO / "chip_smoke.py"]
     for path in sources:
         for n, line in enumerate(path.read_text().splitlines(), 1):
             words = line.strip().split()
-            if words[:1] in (["import"], ["from"]) and len(words) > 1 and \
-                    words[1].split(".")[0] in ("jax", "jaxlib", "obia_tpu"):
+            if words[:1] not in (["import"], ["from"]) or len(words) < 2:
+                continue
+            top = words[1].split(".")[0]
+            if top in ("jax", "jaxlib", "obia_tpu", "flax", "optax",
+                       "tqdm") or (top in ("PIL", "matplotlib", "cv2")
+                                   and not line[:1].isspace()):
                 bad.append(f"{path}:{n}")
     assert not bad, bad
