@@ -173,6 +173,28 @@ any failure raises and exits non-zero:
    on the card (two 128^2 scenes, width 8, FPN 32, stages (1, 1, 1, 1),
    Adam 2e-3, 400 steps): the loss below 10% of its first value and
    AP@0.5 >= 0.9 through ``evaluate_model``.
+22. the fused model (``models/pipeline.py``): ``make_flagship()`` at the
+   JAX driver's 512^2 x 4, 256 segments, 8 classes, on the card cold and
+   warm, then on the CPU: labels equal (or partitions >= 99.99%) and
+   logits within 1e-5 of their largest magnitude; then ``obia_forward`` at
+   config 4's scene (4096^2 x 8, scaled to [0, 1)) with 3000 segments (a
+   55 x 55 grid, K = 3,025), hidden 64, 8 classes, 5 iterations: cold,
+   warm (synced and by CUDA events), the peak device memory, and one
+   traced run's kernel count and device idle share;
+23. ``make_sharded_train_step`` on a 2 x 4 mesh of shards on the card at
+   config 5's 4096^2 RGB scene (``train_inputs``: ``build_scene`` / 256,
+   seeded targets), K = 3,025 (Kpad 3,032), 20 SGD steps: the first and
+   the median warm step, every loss finite and the last below the first;
+   then 3 steps at 512^2 (256 segments) on the card and on the CPU: loss
+   rtol 1e-5, parameters within 1e-5 of each tensor's largest magnitude,
+   centres within 1e-5 in colour and 1e-3 px;
+24. two ranks on the one card: two new interpreters
+   (``chip_smoke.py --two-rank-worker``) join a gloo group on a free port,
+   check ``process_info()``/``is_coordinator()``, all-reduce (1, 4)
+   tensors of rank + 1 on the card (total 12.0), and run 3 steps at 1024^2
+   with one shard row each (``make_mesh(8, ["cuda:0"],
+   distributed=True)``): parameters, losses and centres equal bit for bit
+   to the same steps in this process; each rank's wall and step times.
 
 After the build a line gives the quickshift kernels' registers, spilled
 bytes and pixels a thread (P) as the library reports them. The last two
@@ -241,6 +263,12 @@ DET_CROSS = 256         # card vs CPU at full width
 DET_SMALL = dict(num_classes=2, in_channels=3, backbone_width=8,
                  fpn_channels=32, stage_sizes=(1, 1, 1, 1))
 PC_COLUMNS = ("pai", "fhd", "ch", "mean_intensity", "variance_intensity")
+FUSED_CLASSES = 8       # the fused model's head: 64 hidden, 8 classes
+TRAIN_STEPS = 20        # phase 23's steps at 4096^2
+CROSS_SEGMENTS = 256    # the flagship's segments, for the 512^2 and
+                        # 1024^2 checks of phases 23-24
+TWO_RANK_SIZE = 1024
+TWO_RANK_STEPS = 3
 HBM_BYTES_PER_MS = 3.35e9   # H100 SXM: 3.35 TB/s
 FP32_OPS_PER_MS = 67e9      # H100 SXM: 67 TFLOP/s float32 outside the MMAs
 SFU_OPS_PER_MS = 132 * 16 * 1.98e6  # 132 SMs x 16 exponentials a clock
@@ -2328,6 +2356,268 @@ def profiled(run, image, what: str):
     return out
 
 
+def train_inputs(size: int, n_segments: int, n_classes: int = FUSED_CLASSES,
+                 seed: int = 0):
+    """Phases 23-24's inputs: config 5's RGB scene (``build_scene``) as
+    float32 scaled to [0, 1), and seeded fixed targets for the K objects
+    of the sharded step's grid."""
+    from obia_tpu_torch.ops.slic import _grid_shape
+    gh, gw = _grid_shape(size, size, n_segments)
+    scene = build_scene(h=size, w=size, c=3).astype(np.float32) / 256.0
+    return scene, np.random.default_rng(seed).integers(0, n_classes,
+                                                       gh * gw)
+
+
+def run_train_steps(mesh, scene: np.ndarray, targets: np.ndarray,
+                    steps: int, n_segments: int) -> dict:
+    """``steps`` sharded training steps over ``mesh`` from the seeded
+    head: each step's loss (float32) and host-clock time (synced by
+    reading the loss), and the parameters and centres after the last. The
+    image is sharded from the host, so a rank of a mesh that spans ranks
+    holds only its own blocks."""
+    import torch
+    from obia_tpu_torch.models.pipeline import (initial_centers,
+                                                make_sharded_train_step,
+                                                params_to_jax)
+    from obia_tpu_torch.parallel.mesh import shard_raster
+    size = scene.shape[0]
+    step, init, (gh, gw, K) = make_sharded_train_step(
+        mesh, size, size, scene.shape[2], n_segments, FUSED_CLASSES)
+    host = torch.as_tensor(scene)
+    image = shard_raster(mesh, host)[0]
+    centers = initial_centers(host, gh, gw).to(mesh.home)
+    t = torch.as_tensor(targets).to(mesh.home)
+    model, opt = init()
+    losses, times = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        model, opt, loss, centers = step(image, t, centers, model, opt)
+        losses.append(loss.cpu().numpy())
+        times.append(time.perf_counter() - t0)
+    return {"losses": np.stack(losses), "times": times, "K": K,
+            "centers": centers.cpu().numpy(), **params_to_jax(model)}
+
+
+def fused_phase(card: str) -> None:
+    """Phase 22: the fused forward (``make_flagship``) at the JAX driver's
+    shape on the card, cold and warm, against the CPU; then at config 4's
+    size at full width, timed, its peak memory read and one run traced."""
+    import tempfile
+
+    import torch
+    from obia_tpu_torch import telemetry
+    from obia_tpu_torch.models.pipeline import (init_mlp_params,
+                                                make_flagship, obia_forward)
+    from obia_tpu_torch.ops.slic import _grid_shape
+
+    fn, (image, model) = make_flagship()
+
+    def run():
+        t0 = time.perf_counter()
+        out = fn(image, model)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    _, cold = run()
+    (logits, labels), warm = run()
+    K = logits.shape[0]
+    if (logits.shape != (256, FUSED_CLASSES) or labels.shape != (512, 512)
+            or not bool(torch.isfinite(logits).all())):
+        raise AssertionError(f"flagship: logits {tuple(logits.shape)}, "
+                             f"labels {tuple(labels.shape)}")
+    cfn, (cimage, cmodel) = make_flagship(device="cpu")
+    clogits, clabels = cfn(cimage, cmodel)
+    lab, clab = labels.cpu().numpy(), clabels.numpy()
+    same = float((lab == clab).mean())
+    agree = 1.0 if same == 1.0 else partition_agreement(lab, clab)
+    gap = _gap(logits, clogits)
+    log(f"phase 22, make_flagship() 512^2 x 4, K={K}: cold {cold:.3f} s, "
+        f"warm {warm * 1e3:.2f} ms ({card}); card vs CPU labels equal on "
+        f"{same:.6f} of the pixels (partitions {agree:.6f}), logits "
+        f"{gap:.2e} of their largest magnitude")
+    if agree < 0.9999 or gap > 1e-5:
+        raise AssertionError("flagship card vs CPU past its bars")
+
+    scene = config4_scene(SIZE).astype(np.float32) / 256.0
+    img = torch.as_tensor(scene, device="cuda")
+    gh, gw = _grid_shape(SIZE, SIZE, N_SEGMENTS)
+    head = init_mlp_params(0, 2 * BANDS + 1, FUSED_CLASSES, device="cuda")
+
+    def forward():
+        return obia_forward(img, head, gh=gh, gw=gw)
+
+    t0 = time.perf_counter()
+    forward()
+    torch.cuda.synchronize()
+    cold = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    logits, labels = forward()
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    ev = time_ms(forward, 3)
+    with tempfile.TemporaryDirectory() as tdir:
+        with telemetry.trace(tdir):
+            forward()
+        span = trace_span(tdir)
+    K = gh * gw
+    if (logits.shape != (K, FUSED_CLASSES)
+            or not bool(torch.isfinite(logits).all())
+            or labels.shape != (SIZE, SIZE) or int(labels.min()) < 0
+            or int(labels.max()) >= K):
+        raise AssertionError("the fused forward at config 4's size gave "
+                             "bad logits or labels")
+    log(f"phase 22, obia_forward at {SIZE}^2 x {BANDS} (config 4's scene / "
+        f"256), {gh} x {gw} grid (K={K}), hidden 64, {FUSED_CLASSES} "
+        f"classes, 5 iterations: cold {cold:.3f} s, warm {warm * 1e3:.1f} ms"
+        f" synced, {ev:.1f} ms by CUDA events, peak device memory "
+        f"{peak:.2f} GiB; traced: {span} ({card})")
+
+
+def sharded_train_phase(card: str) -> None:
+    """Phase 23: ``make_sharded_train_step`` on a 2 x 4 mesh of shards on
+    the card at config 5's 4096^2 RGB, TRAIN_STEPS steps; then 3 steps at
+    512^2 on the card against the same on the CPU."""
+    import torch
+    from obia_tpu_torch.parallel.mesh import make_mesh
+    scene, targets = train_inputs(C5_SIZE, N_SEGMENTS)
+    r = run_train_steps(make_mesh(C5_SHARDS, ["cuda:0"]), scene, targets,
+                        TRAIN_STEPS, N_SEGMENTS)
+    K = r["K"]
+    kpad = -(-K // C5_SHARDS) * C5_SHARDS
+    losses = r["losses"]
+    log(f"phase 23, sharded train step at {C5_SIZE}^2 RGB on a 2 x 4 mesh "
+        f"on the card, K={K} (Kpad {kpad}), {TRAIN_STEPS} steps: first "
+        f"{r['times'][0]:.3f} s, median warm step "
+        f"{float(np.median(r['times'][1:])) * 1e3:.1f} ms, warm steps "
+        f"{min(r['times'][1:]) * 1e3:.1f}-{max(r['times'][1:]) * 1e3:.1f} "
+        f"ms; loss {float(losses[0]):.6f} -> {float(losses[-1]):.6f} "
+        f"({card})")
+    if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
+        raise AssertionError(f"sharded step losses {losses.tolist()}")
+
+    scene, targets = train_inputs(CROSS_SIZE, CROSS_SEGMENTS)
+    got = run_train_steps(make_mesh(C5_SHARDS, ["cuda:0"]), scene, targets,
+                          3, CROSS_SEGMENTS)
+    want = run_train_steps(make_mesh(C5_SHARDS, ["cpu"]), scene, targets, 3,
+                           CROSS_SEGMENTS)
+    loss_gap = float(np.abs(got["losses"] / want["losses"] - 1.0).max())
+    gaps = {k: _gap(torch.as_tensor(got[k]), torch.as_tensor(want[k]))
+            for k in ("w1", "b1", "w2", "b2")}
+    C = scene.shape[2]
+    colour = float(np.abs(got["centers"][..., :C]
+                          - want["centers"][..., :C]).max())
+    px = float(np.abs(got["centers"][..., C:]
+                      - want["centers"][..., C:]).max())
+    log(f"phase 23, card vs CPU at {CROSS_SIZE}^2 RGB, {CROSS_SEGMENTS} "
+        f"segments, 3 steps: loss rtol {loss_gap:.2e}, parameters "
+        + ", ".join(f"{k} {v:.2e}" for k, v in gaps.items())
+        + f" of their largest magnitudes, centres {colour:.2e} in colour, "
+        f"{px:.2e} px")
+    if (loss_gap > 1e-5 or max(gaps.values()) > 1e-5 or colour > 1e-5
+            or px > 1e-3):
+        raise AssertionError("sharded step card vs CPU past its bars")
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def two_rank_worker(rank: int, port: int, out_dir: str, device: str,
+                    size: int, steps: int) -> None:
+    """One rank of phase 24 (``chip_smoke.py --two-rank-worker``): join a
+    two-rank gloo group, check the process info, all-reduce a (1, 4)
+    tensor of rank + 1 on ``device``, run ``steps`` sharded steps with
+    shard row ``rank`` of the mesh, save them to ``out_dir`` and print
+    one RESULT line."""
+    t0 = time.perf_counter()
+    import torch
+    import torch.distributed as dist
+    from obia_tpu_torch.parallel.distributed import (initialize,
+                                                     is_coordinator,
+                                                     process_info)
+    from obia_tpu_torch.parallel.mesh import make_mesh
+    initialize(coordinator_address=f"127.0.0.1:{port}", num_processes=2,
+               process_id=rank, backend="gloo", timeout_s=60)
+    try:
+        info = process_info()
+        if (info["process_index"], info["process_count"],
+                is_coordinator()) != (rank, 2, rank == 0):
+            raise AssertionError(f"rank {rank}: {info}")
+        t = torch.full((1, 4), float(rank + 1), device=device)
+        dist.all_reduce(t)
+        total = float(t.sum())
+        scene, targets = train_inputs(size, CROSS_SEGMENTS)
+        r = run_train_steps(make_mesh(C5_SHARDS, [device], distributed=True),
+                            scene, targets, steps, CROSS_SEGMENTS)
+        np.savez(os.path.join(out_dir, f"rank{rank}.npz"),
+                 **{k: v for k, v in r.items() if k not in ("times", "K")})
+    finally:
+        dist.destroy_process_group()
+    print("RESULT " + json.dumps({
+        "rank": rank, "total": total, "info": info, "times": r["times"],
+        "wall": time.perf_counter() - t0}), flush=True)
+
+
+def two_rank_check(card: str, device: str = "cuda:0",
+                   size: int = TWO_RANK_SIZE, steps: int = TWO_RANK_STEPS,
+                   timeout: float = 300.0) -> list:
+    """Phase 24: two worker processes (new interpreters), one shard row
+    each, sharing ``device``: their 12.0 reduction, and their parameters,
+    losses and centres equal bit for bit to the same steps in this
+    process. Returns the workers' RESULT dicts."""
+    import subprocess
+    import tempfile
+
+    from obia_tpu_torch.parallel.mesh import make_mesh
+    scene, targets = train_inputs(size, CROSS_SEGMENTS)
+    one = run_train_steps(make_mesh(C5_SHARDS, [device]), scene, targets,
+                          steps, CROSS_SEGMENTS)
+    port = free_port()
+    with tempfile.TemporaryDirectory() as d:
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--two-rank-worker",
+             str(r), str(port), d, device, str(size), str(steps)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in (0, 1)]
+        outs = []
+        try:
+            for p in procs:
+                outs.append(p.communicate(timeout=timeout)[0])
+        finally:
+            for p in procs:
+                p.kill()
+                p.wait()
+        for r, (p, out) in enumerate(zip(procs, outs)):
+            if p.returncode != 0:
+                raise AssertionError(f"rank {r} exited {p.returncode}:\n"
+                                     f"{out[-3000:]}")
+        results = [json.loads(next(line for line in out.splitlines()
+                                   if line.startswith("RESULT "))[7:])
+                   for out in outs]
+        saved = [dict(np.load(os.path.join(d, f"rank{r}.npz")))
+                 for r in (0, 1)]
+    for r, (res, got) in enumerate(zip(results, saved)):
+        if res["total"] != 12.0:
+            raise AssertionError(f"rank {r}: all_reduce total {res['total']}")
+        for k in got:
+            if not np.array_equal(got[k], one[k]):
+                raise AssertionError(f"rank {r}: {k} differs from the "
+                                     f"one-process run")
+        log(f"phase 24, rank {r} of 2 (gloo, {device}): all_reduce total "
+            f"{res['total']}, {res['info']}, wall {res['wall']:.2f} s, steps "
+            + ", ".join(f"{t * 1e3:.1f}" for t in res["times"]) + " ms")
+    log(f"phase 24, two ranks at {size}^2 RGB, {steps} steps: parameters, "
+        f"losses and centres equal bit for bit to one process (steps "
+        + ", ".join(f"{t * 1e3:.1f}" for t in one["times"])
+        + f" ms) ({card})")
+    return results
+
+
 def main() -> None:
     import argparse
 
@@ -2335,7 +2625,18 @@ def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0,
                         help="seed of the canopy phase's scene")
-    seed = parser.parse_args().seed
+    parser.add_argument("--two-rank-worker", nargs=6,
+                        metavar=("RANK", "PORT", "DIR", "DEVICE", "SIZE",
+                                 "STEPS"),
+                        help="run one rank of phase 24 and exit")
+    args = parser.parse_args()
+    seed = args.seed
+    if args.two_rank_worker:
+        sys.path.insert(0, ROOT)
+        rank, port, out_dir, device, size, steps = args.two_rank_worker
+        two_rank_worker(int(rank), int(port), out_dir, device, int(size),
+                        int(steps))
+        return
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda."
                          "is_available() is False)")
@@ -2640,6 +2941,11 @@ def main() -> None:
 
     # -- 20-21. detection: train and predict at full width, then card checks --
     detection_phases(seed, card)
+
+    # -- 22-24. the fused model, its sharded step, two ranks on the card ------
+    fused_phase(card)
+    sharded_train_phase(card)
+    two_rank_check(card)
 
     log(card_line())
     qs_r, qs_md = 15, QS_KW["max_dist"]  # as qs_time measures

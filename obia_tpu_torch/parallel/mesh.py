@@ -11,6 +11,12 @@ the mesh's first device. Eight shards on ``["cuda:0"]`` put every shard on
 one card (with no ``devices``, :func:`make_mesh` takes the card); eight on
 ``["cpu"]`` is the layout of the CPU tests. Every seam,
 halo and reduction of the path runs the same in both.
+
+``make_mesh(..., distributed=True)`` spreads the mesh over the initialised
+process group (:mod:`.distributed`), one shard row a rank: rank r holds
+and computes only the blocks of row r, and the reductions all-gather every
+rank's per-shard parts and add them in shard order, so every rank gets the
+one-process result bit for bit.
 """
 from __future__ import annotations
 
@@ -27,15 +33,36 @@ DEFAULT_SHARDS = 8  # the 2 x 4 layout of the JAX package's mosaic mesh
 
 class Mesh:
     """(ty, tx) shards over ``devices``; shard (i, j) lives on
-    ``devices[(i * tx + j) % len(devices)]``."""
+    ``devices[(i * tx + j) % len(devices)]``. With ``distributed``, the
+    shard rows are spread over the initialised process group, row r on
+    rank r, and ``devices`` are this rank's."""
 
-    def __init__(self, ty: int, tx: int, devices: Sequence):
+    def __init__(self, ty: int, tx: int, devices: Sequence,
+                 distributed: bool = False):
         if ty < 1 or tx < 1:
             raise ValueError(f"mesh shape ({ty}, {tx}) must be positive")
         if not devices:
             raise ValueError("a mesh needs at least one device")
         self.ty, self.tx = int(ty), int(tx)
         self.devices = tuple(torch.device(d) for d in devices)
+        self.rank, self.world = 0, 1
+        if distributed:
+            import torch.distributed as dist
+            if not dist.is_initialized():
+                raise RuntimeError(
+                    "distributed=True needs an initialised process group: "
+                    "call obia_tpu_torch.parallel.distributed.initialize "
+                    "first")
+            self.rank, self.world = dist.get_rank(), dist.get_world_size()
+            if self.ty != self.world:
+                raise ValueError(
+                    f"a mesh over {self.world} ranks needs {self.world} "
+                    f"shard rows, one a rank; got ({self.ty}, {self.tx})")
+
+    @property
+    def spans_ranks(self) -> bool:
+        """True when other processes hold some of the shards."""
+        return self.world > 1
 
     @property
     def shape(self) -> Tuple[int, int]:
@@ -50,16 +77,20 @@ class Mesh:
         return self.devices[(i * self.tx + j) % len(self.devices)]
 
     def shards(self) -> Iterator[Tuple[int, int]]:
-        """Shard coordinates in row-major order."""
-        for i in range(self.ty):
+        """Coordinates of the shards this process holds, in row-major
+        order: every shard, or row ``rank`` on a mesh that spans ranks."""
+        for i in ((self.rank,) if self.spans_ranks else range(self.ty)):
             for j in range(self.tx):
                 yield i, j
 
 
-def make_mesh(n_shards: Optional[int] = None, devices=None) -> Mesh:
+def make_mesh(n_shards: Optional[int] = None, devices=None,
+              distributed: bool = False) -> Mesh:
     """Most-square (ty, tx) factorisation of ``n_shards`` (default 8) over
     ``devices`` (default the card, raising where there is none; ``["cpu"]``
-    asks for the CPU). Shards never move off the devices given."""
+    asks for the CPU). Shards never move off the devices given. With
+    ``distributed``, shard row r goes to rank r of the process group,
+    whose size must be ty."""
     n = int(n_shards or DEFAULT_SHARDS)
     if devices is None:
         devices = [resolve_device(None)]
@@ -68,14 +99,14 @@ def make_mesh(n_shards: Optional[int] = None, devices=None) -> Mesh:
     ty = int(math.sqrt(n))
     while n % ty:
         ty -= 1
-    return Mesh(ty, n // ty, devices)
+    return Mesh(ty, n // ty, devices, distributed)
 
 
 class ShardedRaster:
     """A padded (Hp, Wp[, C]) raster as a (ty, tx) grid of contiguous
     (h, w[, C]) blocks, block (i, j) covering rows i*h..(i+1)*h and columns
     j*w..(j+1)*w on ``mesh.device_of(i, j)``; ``crop_hw`` is the unpadded
-    (H, W)."""
+    (H, W). Blocks of shards another rank holds are None."""
 
     def __init__(self, mesh: Mesh, blocks: List[List[torch.Tensor]],
                  crop_hw: Tuple[int, int]):
@@ -88,7 +119,8 @@ class ShardedRaster:
 
     @property
     def block_hw(self) -> Tuple[int, int]:
-        return tuple(self.blocks[0][0].shape[:2])
+        i, j = next(self.mesh.shards())
+        return tuple(self.blocks[i][j].shape[:2])
 
     @property
     def padded_hw(self) -> Tuple[int, int]:
@@ -103,13 +135,15 @@ class ShardedRaster:
     def map(self, fn: Callable[[torch.Tensor, int, int], torch.Tensor]
             ) -> "ShardedRaster":
         """A raster of the same layout from ``fn(block, i, j)``."""
-        return ShardedRaster(
-            self.mesh, [[fn(self.blocks[i][j], i, j)
-                         for j in range(self.mesh.tx)]
-                        for i in range(self.mesh.ty)], self.crop_hw)
+        return ShardedRaster(self.mesh, _held(
+            self.mesh, lambda i, j: fn(self.blocks[i][j], i, j)),
+            self.crop_hw)
 
     def gather(self) -> torch.Tensor:
         """The whole padded raster on the mesh's home device."""
+        if self.mesh.spans_ranks:
+            raise ValueError("gather() needs every block in one process; "
+                             "this mesh spans ranks")
         home = self.mesh.home
         return torch.cat([torch.cat([b.to(home) for b in row], dim=1)
                           for row in self.blocks], dim=0)
@@ -132,29 +166,60 @@ def shard_raster(mesh: Mesh, arr, fill=0) -> Tuple[ShardedRaster,
                           device=t.device)
         full[:H, :W] = t
         t = full
-    blocks = [[t[i * h:(i + 1) * h, j * w:(j + 1) * w].to(
-        mesh.device_of(i, j)).contiguous() for j in range(mesh.tx)]
-        for i in range(mesh.ty)]
+    blocks = _held(mesh, lambda i, j: t[i * h:(i + 1) * h,
+                                         j * w:(j + 1) * w].to(
+        mesh.device_of(i, j)).contiguous())
     return ShardedRaster(mesh, blocks, (H, W)), (H, W)
 
 
+def _held(mesh: Mesh, make: Callable[[int, int], torch.Tensor]
+          ) -> List[List[Optional[torch.Tensor]]]:
+    """The (ty, tx) grid of ``make(i, j)`` over the shards this process
+    holds, None elsewhere."""
+    grid = [[None] * mesh.tx for _ in range(mesh.ty)]
+    for i, j in mesh.shards():
+        grid[i][j] = make(i, j)
+    return grid
+
+
+def all_parts(mesh: Mesh, parts: Sequence[torch.Tensor]
+              ) -> List[torch.Tensor]:
+    """Every shard's part in shard order on the home device, from the parts
+    of the shards this process holds (``mesh.shards()`` order). On a mesh
+    that spans ranks each rank's row of parts is all-gathered, so every
+    rank gets the same list."""
+    home = mesh.home
+    parts = [p.to(home) for p in parts]
+    if not mesh.spans_ranks:
+        return parts
+    import torch.distributed as dist
+    row = torch.stack(parts)
+    rows = [torch.empty_like(row) for _ in range(mesh.world)]
+    dist.all_gather(rows, row)
+    return [p for r in rows for p in r.unbind(0)]
+
+
 def psum(mesh: Mesh, parts: Sequence[torch.Tensor]) -> torch.Tensor:
-    """Sum of per-shard tensors, on the mesh's home device."""
-    out = parts[0].to(mesh.home, copy=True)
+    """Sum of per-shard tensors in shard order, on the mesh's home
+    device."""
+    parts = all_parts(mesh, parts)
+    out = parts[0].clone()
     for p in parts[1:]:
-        out += p.to(mesh.home)
+        out += p
     return out
 
 
 def pmin(mesh: Mesh, parts: Sequence[torch.Tensor]) -> torch.Tensor:
-    out = parts[0].to(mesh.home, copy=True)
+    parts = all_parts(mesh, parts)
+    out = parts[0].clone()
     for p in parts[1:]:
-        out = torch.minimum(out, p.to(mesh.home))
+        out = torch.minimum(out, p)
     return out
 
 
 def pmax(mesh: Mesh, parts: Sequence[torch.Tensor]) -> torch.Tensor:
-    out = parts[0].to(mesh.home, copy=True)
+    parts = all_parts(mesh, parts)
+    out = parts[0].clone()
     for p in parts[1:]:
-        out = torch.maximum(out, p.to(mesh.home))
+        out = torch.maximum(out, p)
     return out

@@ -36,6 +36,15 @@ def _edge_extend(img: torch.Tensor, Hp: int, Wp: int) -> torch.Tensor:
     return img
 
 
+def _one_process(mesh: Mesh) -> None:
+    """The mosaic gathers whole rasters into one process, as the JAX
+    package's gathers them to one host, so its mesh must not span ranks."""
+    if mesh.spans_ranks:
+        raise ValueError("the mosaic gathers whole rasters into one "
+                         "process: it does not run on a mesh that spans "
+                         "ranks")
+
+
 def segment_mosaic_device(image_data, n_segments: int = 1000,
                           compactness: float = 10.0, max_num_iter: int = 10,
                           *, mesh: Mesh, min_size_factor: float = 0.5,
@@ -47,6 +56,7 @@ def segment_mosaic_device(image_data, n_segments: int = 1000,
 
     Returns (mesh, int32 dense labels 0..K-1 / -1 on pads per block, K,
     (H, W))."""
+    _one_process(mesh)
     img = torch.as_tensor(image_data)
     if img.device.type != "cpu" and mesh.home.type == "cpu":
         raise ValueError(f"the image is on {img.device} and the mesh on the "
@@ -112,6 +122,7 @@ def mosaic_pipeline(image, n_segments: int = 1000, compactness: float = 10.0,
                                                    layer_from_labels)
     from ..segmentation.segment_statistics import create_objects
 
+    _one_process(mesh)
     image = as_image(image)
     H, W, C = image.img_data.shape
     with telemetry.stage("mosaic.normalize", H * W / 1e6):

@@ -49,3 +49,29 @@ def test_detection_tiles_load_as_a_dataset(tmp_path):
     chip_smoke.check_boxes(ok, 96)
     with pytest.raises(AssertionError, match="leaves the raster"):
         chip_smoke.check_boxes(dict(ok, boxes=ok["boxes"] + 1), 96)
+
+
+def test_train_inputs_are_the_config5_scene():
+    """Phases 23-24's inputs: bench.py's RGB scene in [0, 1) as float32,
+    and one seeded target in [0, 8) for each object of the step's grid."""
+    from obia_tpu_torch.ops.slic import _grid_shape
+    scene, targets = chip_smoke.train_inputs(64, 16)
+    want = bench.build_scene(h=64, w=64, c=3).astype(np.float32) / 256.0
+    assert scene.dtype == np.float32 and np.array_equal(scene, want)
+    assert 0.0 <= scene.min() and scene.max() < 1.0
+    gh, gw = _grid_shape(64, 64, 16)
+    assert targets.shape == (gh * gw,)
+    assert 0 <= targets.min() and targets.max() < chip_smoke.FUSED_CLASSES
+    assert np.array_equal(targets, chip_smoke.train_inputs(64, 16)[1])
+
+
+def test_two_rank_check_on_the_cpu():
+    """Phase 24 on the CPU at 64^2: two gloo workers started from
+    chip_smoke.py, their reduction 12.0 and their steps equal bit for bit
+    to the one-process steps (the helper raises otherwise)."""
+    results = chip_smoke.two_rank_check("cpu", device="cpu", size=64,
+                                        steps=2, timeout=120)
+    assert [r["rank"] for r in results] == [0, 1]
+    for r in results:
+        assert r["total"] == 12.0 and len(r["times"]) == 2
+        assert r["info"]["process_count"] == 2

@@ -11,6 +11,7 @@ from obia_tpu_torch.classification import forest as tforest
 from obia_tpu_torch.classification import mlp as tmlp
 from obia_tpu_torch.geometry.affine import Affine
 from obia_tpu_torch.handlers.geotif import image_from_array
+from obia_tpu_torch.models import pipeline as tpipe
 from obia_tpu_torch.ops import quickshift as tqs
 from obia_tpu_torch.ops import slic as tslic
 from obia_tpu_torch.parallel.mesh import make_mesh
@@ -178,6 +179,16 @@ ENTRY_POINTS = {
     "mlp_from_flax": lambda device: tmlp.mlp_from_flax(
         _flax_params(), [0, 1], (4,), **device).predict_proba(np.ones((2, 3))),
     "make_mesh": _run_make_mesh,
+    "make_flagship": lambda device: tpipe.make_flagship(
+        16, 16, 3, 4, 2, **device),
+    "init_mlp_params": lambda device: tpipe.init_mlp_params(0, 7, 2,
+                                                            **device),
+    "params_from_jax": lambda device: tpipe.params_from_jax(
+        {"w1": np.ones((7, 4)), "b1": np.zeros(4), "w2": np.ones((4, 2)),
+         "b2": np.zeros(2)}, **device),
+    "make_sharded_train_step init": lambda device:
+        tpipe.make_sharded_train_step(_run_make_mesh(device), 16, 32, 3, 4,
+                                      2)[1](),
     "classify": _run_classify,
     "create_tiled_segments": _run_tiled,
     "make_chm_seeds": _run_canopy("make_chm_seeds"),

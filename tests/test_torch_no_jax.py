@@ -6,7 +6,9 @@ tables, ``create_objects`` on a filtered table and on a GeoPackage read
 back (the rasterise path) with a LAS point cloud, the sharded mosaic on a
 2 x 4 CPU mesh, tiled segmentation with the ``sigma`` pre-blur, the canopy
 seed and cost-surface workflow, the detection subsystem: build, train
-on GeoTIFF tiles, predict), and never loads jax, flax, optax, click,
+on GeoTIFF tiles, predict; the fused model's forward and one sharded
+training step, and the process-group start-up on one process), and never
+loads jax, flax, optax, click,
 tqdm, matplotlib or OpenCV (the CLI module imports without click). Its sources and ``chip_smoke.py`` import neither jax
 nor ``obia_tpu``."""
 import subprocess
@@ -123,6 +125,22 @@ SCRIPT = textwrap.dedent("""
     cols, geoms, _ = read_gpkg(os.path.join("tiled", "segments.gpkg"))
     assert len(tiled) > 3 and cols["segment_id"] == list(
         range(1, len(tiled) + 1)) and len(geoms) == len(tiled)
+
+    import obia_tpu_torch.parallel.distributed as tdist
+    from obia_tpu_torch.models.pipeline import (initial_centers,
+                                                make_flagship,
+                                                make_sharded_train_step)
+    tdist.initialize()
+    assert tdist.process_info()["process_count"] == 1
+    fn, (fimg, fmodel) = make_flagship(64, 64, 3, 16, 4, device="cpu")
+    logits, flab = fn(fimg, fmodel)
+    assert logits.shape == (16, 4) and bool(torch.isfinite(logits).all())
+    step, init, (gh, gw, K) = make_sharded_train_step(
+        make_mesh(8, ["cpu"]), 64, 64, 3, 16, 4)
+    model, opt = init()
+    model, opt, loss, _ = step(fimg, torch.arange(K) % 4,
+                               initial_centers(fimg, gh, gw), model, opt)
+    assert bool(torch.isfinite(loss))
     for mod in BLOCKED:
         assert mod not in sys.modules, mod
     print("NO_JAX_OK", len(t), f, len(tq), len(tm))
