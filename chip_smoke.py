@@ -190,10 +190,11 @@ any failure raises and exits non-zero:
    centres within 1e-5 in colour and 1e-3 px;
 24. two ranks on the one card: two new interpreters
    (``chip_smoke.py --two-rank-worker``) join a gloo group on a free port,
-   check ``process_info()``/``is_coordinator()``, all-reduce (1, 4)
-   tensors of rank + 1 on the card (total 12.0), and run 3 steps at 1024^2
-   with one shard row each (``make_mesh(8, ["cuda:0"],
-   distributed=True)``): parameters, losses and centres equal bit for bit
+   check ``process_info()``/``is_coordinator()`` (the shared card counts
+   once), all-reduce (1, 4) tensors of rank + 1 on the card (total 12.0),
+   check the shards each holds and the mosaic's refusal of a mesh that
+   spans ranks, and run 3 steps at 1024^2 with one shard row each
+   (``make_mesh(8, ["cuda:0"], distributed=True)``): parameters, losses and centres equal bit for bit
    to the same steps in this process; each rank's wall and step times.
 
 After the build a line gives the quickshift kernels' registers, spilled
@@ -2145,11 +2146,13 @@ def detection_cross_check(model) -> None:
             raise AssertionError(f"card vs CPU {what}: {got:.3e} > {bar}")
 
 
-def detection_overfit_on_card() -> None:
+def detection_overfit_on_card() -> list:
     """Phase 21 (b): tests/test_detection.py:243's overfit run on the card
     (two 128^2 scenes, width 8, FPN 32, stages (1, 1, 1, 1), Adam 2e-3, 400
     steps): the loss below 10% of its first value, AP@0.5 >= 0.9 through
-    ``evaluate_model``."""
+    ``evaluate_model``. cuDNN's deterministic algorithms only: its default
+    weight gradients add with atomics, so two runs of the 400 float32 steps
+    part ways and end on different models. Returns the losses."""
     import torch
 
     from obia_tpu_torch.detection import build_detection_model
@@ -2178,10 +2181,15 @@ def detection_overfit_on_card() -> None:
     model = build_detection_model(seed=0, image_size=(S, S), **DET_SMALL)
     step = make_train_step(model, torch.optim.Adam(model.parameters(),
                                                    lr=2e-3))
-    t0 = time.perf_counter()
-    losses = [float(step(imgs, targets)) for _ in range(400)]
-    secs = time.perf_counter() - t0
-    res = evaluate_model(model, Scenes(), score_threshold=0.05)
+    was = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        t0 = time.perf_counter()
+        losses = [float(step(imgs, targets)) for _ in range(400)]
+        secs = time.perf_counter() - t0
+        res = evaluate_model(model, Scenes(), score_threshold=0.05)
+    finally:
+        torch.backends.cudnn.deterministic = was
     log(f"phase 21 (b), overfit on the card: loss {losses[0]:.4f} -> "
         f"{losses[-1]:.6f} in 400 steps ({1000 * secs / 400:.2f} ms a "
         f"step), AP@0.5 {res['AP']:.4f} ({res['n_predictions']} "
@@ -2189,6 +2197,7 @@ def detection_overfit_on_card() -> None:
     if not losses[-1] < 0.1 * losses[0] or res["AP"] < 0.9:
         raise AssertionError(f"overfit bar missed: {losses[0]} -> "
                              f"{losses[-1]}, AP {res['AP']}")
+    return losses
 
 
 def detection_phases(seed: int, card: str) -> None:
@@ -2357,13 +2366,14 @@ def profiled(run, image, what: str):
 
 
 def train_inputs(size: int, n_segments: int, n_classes: int = FUSED_CLASSES,
-                 seed: int = 0):
-    """Phases 23-24's inputs: config 5's RGB scene (``build_scene``) as
-    float32 scaled to [0, 1), and seeded fixed targets for the K objects
-    of the sharded step's grid."""
+                 seed: int = 0, width: int | None = None):
+    """Phases 23-24's inputs: config 5's RGB scene (``build_scene``, size
+    x ``width`` or square) as float32 scaled to [0, 1), and seeded fixed
+    targets for the K objects of the sharded step's grid."""
     from obia_tpu_torch.ops.slic import _grid_shape
-    gh, gw = _grid_shape(size, size, n_segments)
-    scene = build_scene(h=size, w=size, c=3).astype(np.float32) / 256.0
+    width = size if width is None else width
+    gh, gw = _grid_shape(size, width, n_segments)
+    scene = build_scene(h=size, w=width, c=3).astype(np.float32) / 256.0
     return scene, np.random.default_rng(seed).integers(0, n_classes,
                                                        gh * gw)
 
@@ -2380,9 +2390,8 @@ def run_train_steps(mesh, scene: np.ndarray, targets: np.ndarray,
                                                 make_sharded_train_step,
                                                 params_to_jax)
     from obia_tpu_torch.parallel.mesh import shard_raster
-    size = scene.shape[0]
     step, init, (gh, gw, K) = make_sharded_train_step(
-        mesh, size, size, scene.shape[2], n_segments, FUSED_CLASSES)
+        mesh, *scene.shape, n_segments, FUSED_CLASSES)
     host = torch.as_tensor(scene)
     image = shard_raster(mesh, host)[0]
     centers = initial_centers(host, gh, gw).to(mesh.home)
@@ -2528,60 +2537,85 @@ def free_port() -> int:
 
 
 def two_rank_worker(rank: int, port: int, out_dir: str, device: str,
-                    size: int, steps: int) -> None:
+                    size: int, width: int, steps: int) -> None:
     """One rank of phase 24 (``chip_smoke.py --two-rank-worker``): join a
-    two-rank gloo group, check the process info, all-reduce a (1, 4)
-    tensor of rank + 1 on ``device``, run ``steps`` sharded steps with
-    shard row ``rank`` of the mesh, save them to ``out_dir`` and print
-    one RESULT line."""
+    two-rank gloo group, read the process info, all-reduce a (1, 4)
+    tensor of rank + 1 on ``device``, note the shards and blocks it holds
+    and what a mesh that spans ranks refuses, run ``steps`` sharded steps
+    with shard row ``rank`` of the mesh, save them to ``out_dir`` and
+    print one RESULT line."""
     t0 = time.perf_counter()
     import torch
     import torch.distributed as dist
     from obia_tpu_torch.parallel.distributed import (initialize,
                                                      is_coordinator,
                                                      process_info)
-    from obia_tpu_torch.parallel.mesh import make_mesh
+    from obia_tpu_torch.parallel.mesh import make_mesh, shard_raster
+    from obia_tpu_torch.parallel.mosaic import (mosaic_pipeline,
+                                                segment_mosaic_device)
     initialize(coordinator_address=f"127.0.0.1:{port}", num_processes=2,
                process_id=rank, backend="gloo", timeout_s=60)
+    initialize(coordinator_address="127.0.0.1:1", num_processes=2,
+               process_id=rank)  # already initialised: a no-op
     try:
-        info = process_info()
-        if (info["process_index"], info["process_count"],
-                is_coordinator()) != (rank, 2, rank == 0):
-            raise AssertionError(f"rank {rank}: {info}")
+        res = {"rank": rank, "info": process_info(),
+               "coordinator": is_coordinator()}
         t = torch.full((1, 4), float(rank + 1), device=device)
         dist.all_reduce(t)
-        total = float(t.sum())
-        scene, targets = train_inputs(size, CROSS_SEGMENTS)
-        r = run_train_steps(make_mesh(C5_SHARDS, [device], distributed=True),
-                            scene, targets, steps, CROSS_SEGMENTS)
+        res["total"] = float(t.sum())
+        scene, targets = train_inputs(size, CROSS_SEGMENTS, width=width)
+        mesh = make_mesh(C5_SHARDS, [device], distributed=True)
+        res["held"] = [list(ij) for ij in mesh.shards()]
+        res["blocks"] = [[b is not None for b in row] for row in
+                         shard_raster(mesh, torch.as_tensor(scene))[0].blocks]
+        try:
+            make_mesh(3, [device], distributed=True)
+        except ValueError:
+            res["ragged_rows_refused"] = True
+        res["mosaic_refused"] = []
+        for call in (lambda: mosaic_pipeline(None, mesh=mesh),
+                     lambda: segment_mosaic_device(scene, mesh=mesh)):
+            try:
+                call()
+            except ValueError as exc:
+                res["mosaic_refused"].append(str(exc))
+        r = run_train_steps(mesh, scene, targets, steps, CROSS_SEGMENTS)
         np.savez(os.path.join(out_dir, f"rank{rank}.npz"),
                  **{k: v for k, v in r.items() if k not in ("times", "K")})
     finally:
         dist.destroy_process_group()
-    print("RESULT " + json.dumps({
-        "rank": rank, "total": total, "info": info, "times": r["times"],
-        "wall": time.perf_counter() - t0}), flush=True)
+    print("RESULT " + json.dumps(dict(res, times=r["times"],
+                                      wall=time.perf_counter() - t0)),
+          flush=True)
 
 
 def two_rank_check(card: str, device: str = "cuda:0",
                    size: int = TWO_RANK_SIZE, steps: int = TWO_RANK_STEPS,
-                   timeout: float = 300.0) -> list:
+                   timeout: float = 300.0, width: int | None = None
+                   ) -> list:
     """Phase 24: two worker processes (new interpreters), one shard row
-    each, sharing ``device``: their 12.0 reduction, and their parameters,
-    losses and centres equal bit for bit to the same steps in this
-    process. Returns the workers' RESULT dicts."""
+    each, sharing ``device``: their 12.0 reduction, process info, held
+    shards and refusals, and their parameters, losses and centres equal
+    bit for bit to the same steps in this process. Returns the workers'
+    RESULT dicts, each with ``bitwise``: the saved arrays found equal."""
     import subprocess
     import tempfile
 
+    import torch
     from obia_tpu_torch.parallel.mesh import make_mesh
-    scene, targets = train_inputs(size, CROSS_SEGMENTS)
+    width = size if width is None else width
+    scene, targets = train_inputs(size, CROSS_SEGMENTS, width=width)
     one = run_train_steps(make_mesh(C5_SHARDS, [device]), scene, targets,
                           steps, CROSS_SEGMENTS)
+    # the visible cards, all shared by both ranks; with none, each rank's
+    # CPU is its own device
+    cards = torch.cuda.device_count()
     port = free_port()
     with tempfile.TemporaryDirectory() as d:
         procs = [subprocess.Popen(
             [sys.executable, os.path.abspath(__file__), "--two-rank-worker",
-             str(r), str(port), d, device, str(size), str(steps)],
+             str(r), str(port), d, device, str(size), str(width),
+             str(steps)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
             for r in (0, 1)]
         outs = []
@@ -2604,14 +2638,32 @@ def two_rank_check(card: str, device: str = "cuda:0",
     for r, (res, got) in enumerate(zip(results, saved)):
         if res["total"] != 12.0:
             raise AssertionError(f"rank {r}: all_reduce total {res['total']}")
-        for k in got:
-            if not np.array_equal(got[k], one[k]):
-                raise AssertionError(f"rank {r}: {k} differs from the "
-                                     f"one-process run")
+        info = {"process_index": r, "process_count": 2,
+                "local_devices": max(cards, 1),
+                "global_devices": cards or 2}
+        if res["info"] != info or res["coordinator"] is not (r == 0):
+            raise AssertionError(f"rank {r}: {res['info']}, coordinator "
+                                 f"{res['coordinator']}; want {info}")
+        if (res["held"] != [[r, j] for j in range(C5_SHARDS // 2)]
+                or res["blocks"] != [[i == r] * (C5_SHARDS // 2)
+                                     for i in range(2)]):
+            raise AssertionError(f"rank {r} holds {res['held']}, blocks "
+                                 f"{res['blocks']}")
+        if not res.get("ragged_rows_refused") or len(
+                res["mosaic_refused"]) != 2 or not all(
+                "spans ranks" in m for m in res["mosaic_refused"]):
+            raise AssertionError(f"rank {r}: a mesh across ranks not "
+                                 f"refused: {res}")
+        res["bitwise"] = sorted(k for k in got
+                                if np.array_equal(got[k], one[k]))
+        if res["bitwise"] != sorted(got):
+            raise AssertionError(f"rank {r}: only {res['bitwise']} of "
+                                 f"{sorted(got)} equal the one-process run")
         log(f"phase 24, rank {r} of 2 (gloo, {device}): all_reduce total "
             f"{res['total']}, {res['info']}, wall {res['wall']:.2f} s, steps "
             + ", ".join(f"{t * 1e3:.1f}" for t in res["times"]) + " ms")
-    log(f"phase 24, two ranks at {size}^2 RGB, {steps} steps: parameters, "
+    log(f"phase 24, two ranks at {size} x {width} RGB, {steps} steps: "
+        f"parameters, "
         f"losses and centres equal bit for bit to one process (steps "
         + ", ".join(f"{t * 1e3:.1f}" for t in one["times"])
         + f" ms) ({card})")
@@ -2625,17 +2677,18 @@ def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0,
                         help="seed of the canopy phase's scene")
-    parser.add_argument("--two-rank-worker", nargs=6,
-                        metavar=("RANK", "PORT", "DIR", "DEVICE", "SIZE",
-                                 "STEPS"),
+    parser.add_argument("--two-rank-worker", nargs=7,
+                        metavar=("RANK", "PORT", "DIR", "DEVICE", "HEIGHT",
+                                 "WIDTH", "STEPS"),
                         help="run one rank of phase 24 and exit")
     args = parser.parse_args()
     seed = args.seed
     if args.two_rank_worker:
         sys.path.insert(0, ROOT)
-        rank, port, out_dir, device, size, steps = args.two_rank_worker
+        rank, port, out_dir, device, size, width, steps = \
+            args.two_rank_worker
         two_rank_worker(int(rank), int(port), out_dir, device, int(size),
-                        int(steps))
+                        int(width), int(steps))
         return
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda."

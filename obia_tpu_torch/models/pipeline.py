@@ -83,10 +83,12 @@ def params_to_jax(model: FusedMLP) -> dict:
 def _ordered_segment_sum(values: torch.Tensor, seg: torch.Tensor,
                          K: int) -> torch.Tensor:
     """(N, F) rows summed by segment id, each segment's rows added one by
-    one in row order from zero: ``index_add_`` does so on the CPU (the
-    reference's order there); on the card its atomics add in any order,
-    and ``index_put_(accumulate=True)`` sorts the ids stably and adds each
-    segment's rows in order."""
+    one in row order from zero. No one call does so on both devices:
+    ``index_add_`` does on the CPU (the reference's order there) but adds
+    with atomics on the card; ``index_put_(accumulate=True)`` sorts the
+    ids stably and adds each segment's rows in order on the card, but on
+    a multi-threaded CPU adds float32 rows with atomics, in an order that
+    changes run to run (``test_ordered_segment_sum_adds_in_row_order``)."""
     if values.device.type == "cpu":
         return segment_sum(values, seg, K)
     out = torch.zeros((K, values.shape[1]), dtype=values.dtype,

@@ -8,14 +8,16 @@ no-op on one process and when already initialised. A mesh made with
 ``parallel.mesh.make_mesh(..., distributed=True)`` then puts one shard row
 on each rank.
 
-The backend: NCCL when every rank has a card of its own, gloo on the CPU;
-several ranks sharing a card must ask for ``backend="gloo"``, since NCCL
-refuses two ranks on one GPU.
+The backend: NCCL when every rank has a card of its own (no more ranks on
+a node than the node has cards), gloo on the CPU; several ranks sharing a
+card must ask for ``backend="gloo"``, since NCCL refuses two ranks on one
+GPU.
 """
 from __future__ import annotations
 
 import datetime
 import os
+import socket
 from typing import Optional, Sequence
 
 import torch
@@ -28,6 +30,11 @@ _CLUSTER_VARS = ("WORLD_SIZE", "SLURM_NTASKS", "SLURM_JOB_NUM_NODES",
 _WORLD_VARS = ("WORLD_SIZE", "SLURM_NTASKS", "OMPI_COMM_WORLD_SIZE",
                "PMI_SIZE")
 _RANK_VARS = ("RANK", "SLURM_PROCID", "OMPI_COMM_WORLD_RANK", "PMI_RANK")
+# this node's share of the ranks, and a rank's place among them
+_LOCAL_WORLD_VARS = ("LOCAL_WORLD_SIZE", "SLURM_NTASKS_PER_NODE",
+                     "OMPI_COMM_WORLD_LOCAL_SIZE")
+_LOCAL_RANK_VARS = ("LOCAL_RANK", "SLURM_LOCALID",
+                    "OMPI_COMM_WORLD_LOCAL_RANK")
 
 
 def initialize(coordinator_address: Optional[str] = None,
@@ -39,8 +46,10 @@ def initialize(coordinator_address: Optional[str] = None,
     ``host:port``; without it the address comes from ``MASTER_ADDR`` and
     ``MASTER_PORT``. ``num_processes`` and ``process_id`` default to the
     cluster manager's variables. ``backend`` defaults to NCCL when every
-    rank has a card of its own (``torch.cuda.set_device(local_rank)``
-    first) and to gloo where there is no card, and raises otherwise.
+    rank has a card of its own, that is when the ranks on this node (the
+    launcher's local size, else all of them) are no more than its cards
+    (``torch.cuda.set_device(local_rank)`` first), and to gloo where there
+    is no card, and raises otherwise.
 
     Nothing here initialises CUDA before the process group exists (a
     context made on card 0 first would sit in every rank)."""
@@ -62,23 +71,27 @@ def initialize(coordinator_address: Optional[str] = None,
     else:
         raise ValueError("no coordinator: pass coordinator_address="
                          "'host:port' or set MASTER_ADDR and MASTER_PORT")
-    backend = backend or _default_backend(world)
+    local_world = _env_int(_LOCAL_WORLD_VARS)
+    backend = backend or _default_backend(
+        world if local_world is None else local_world)
     if backend == "nccl":
-        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", rank)))
+        local_rank = _env_int(_LOCAL_RANK_VARS)
+        torch.cuda.set_device(rank if local_rank is None else local_rank)
     dist.init_process_group(backend, init_method=init_method,
                             world_size=world, rank=rank,
                             timeout=datetime.timedelta(seconds=timeout_s))
 
 
-def _default_backend(world: int) -> str:
+def _default_backend(local_world: int) -> str:
+    """The backend for ``local_world`` ranks on this node."""
     cards = torch.cuda.device_count()  # counts; creates no context
     if cards == 0:
         return "gloo"
-    if world <= cards:
+    if local_world <= cards:
         return "nccl"
     raise RuntimeError(
-        f"{world} ranks on {cards} card(s): NCCL refuses two ranks on one "
-        f"GPU; pass backend='gloo' to share a card")
+        f"{local_world} ranks on {cards} card(s) of this node: NCCL refuses "
+        f"two ranks on one GPU; pass backend='gloo' to share a card")
 
 
 def _env_int(names: Sequence[str]) -> Optional[int]:
@@ -103,19 +116,27 @@ def _cluster_env_present() -> bool:
 def process_info() -> dict:
     """This process's index and the group's size; ``local_devices`` is
     the devices this process computes on (one card a rank under NCCL, the
-    visible cards or the CPU otherwise) and ``global_devices`` their sum
-    over the ranks. In a process group this is a collective: every rank
-    calls it."""
-    local = 1 if (dist.is_initialized() and dist.get_backend() == "nccl") \
-        else max(torch.cuda.device_count(), 1)
+    visible cards or the CPU otherwise) and ``global_devices`` the
+    distinct ones over the ranks: a card that several ranks share counts
+    once, each rank's CPU counts as its own. In a process group this is a
+    collective: every rank calls it."""
     if not dist.is_initialized():
+        local = max(torch.cuda.device_count(), 1)
         return {"process_index": 0, "process_count": 1,
                 "local_devices": local, "global_devices": local}
-    counts = [None] * dist.get_world_size()
-    dist.all_gather_object(counts, local)
-    return {"process_index": dist.get_rank(),
-            "process_count": dist.get_world_size(),
-            "local_devices": local, "global_devices": sum(counts)}
+    rank = dist.get_rank()
+    if dist.get_backend() == "nccl":
+        cards = [torch.cuda.current_device()]
+    else:
+        cards = range(torch.cuda.device_count())
+    host = socket.gethostname()
+    mine = [(host, str(torch.cuda.get_device_properties(i).uuid))
+            for i in cards] or [(host, f"cpu of rank {rank}")]
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, mine)
+    return {"process_index": rank, "process_count": dist.get_world_size(),
+            "local_devices": len(mine),
+            "global_devices": len({d for ds in every for d in ds})}
 
 
 def is_coordinator() -> bool:

@@ -65,13 +65,12 @@ def test_train_inputs_are_the_config5_scene():
     assert np.array_equal(targets, chip_smoke.train_inputs(64, 16)[1])
 
 
-def test_two_rank_check_on_the_cpu():
-    """Phase 24 on the CPU at 64^2: two gloo workers started from
-    chip_smoke.py, their reduction 12.0 and their steps equal bit for bit
-    to the one-process steps (the helper raises otherwise)."""
-    results = chip_smoke.two_rank_check("cpu", device="cpu", size=64,
-                                        steps=2, timeout=120)
-    assert [r["rank"] for r in results] == [0, 1]
-    for r in results:
-        assert r["total"] == 12.0 and len(r["times"]) == 2
-        assert r["info"]["process_count"] == 2
+def test_train_inputs_take_a_width():
+    """Phase 24's CPU run on the dry run's 256 x 512: the same scene as
+    bench.py's at that shape, targets for that shape's grid."""
+    from obia_tpu_torch.ops.slic import _grid_shape
+    scene, targets = chip_smoke.train_inputs(32, 16, width=48)
+    want = bench.build_scene(h=32, w=48, c=3).astype(np.float32) / 256.0
+    assert np.array_equal(scene, want)
+    gh, gw = _grid_shape(32, 48, 16)
+    assert targets.shape == (gh * gw,)

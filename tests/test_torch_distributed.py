@@ -1,95 +1,28 @@
 """obia_tpu_torch/parallel/distributed.py and the mesh spread over ranks,
-on the CPU with gloo: start-up decisions against the JAX package's, two
-real worker processes (a cross-process reduction, as
-tests/test_multihost.py does for JAX, and the sharded train step with one
-shard row a rank, equal bit for bit to the one-process step), and the
-mosaic refused on a mesh that spans ranks. Every subprocess has a
-timeout, and the process group one of 60 s."""
-import json
-import os
-import socket
-import subprocess
-import sys
-from pathlib import Path
-
-import numpy as np
+on the CPU with gloo: start-up decisions against the JAX package's, and
+two real worker processes started by chip_smoke.py's phase 24 (a
+cross-process reduction, as tests/test_multihost.py does for JAX, one
+shard row a rank, the mosaic refused on a mesh that spans ranks, and the
+sharded train step equal bit for bit to the one-process step). Each
+worker has a timeout, and the process group one of 60 s."""
 import pytest
 import torch
 import torch.distributed as dist
 
+import chip_smoke
 from obia_tpu.parallel import distributed as jdist
-from obia_tpu_torch.models import pipeline as tp
 from obia_tpu_torch.parallel import distributed as tdist
 from obia_tpu_torch.parallel.mesh import make_mesh
 
-REPO = Path(__file__).resolve().parent.parent
-SCENE = (256, 512, 3)
-N_SEGMENTS, N_CLASSES, STEPS = 16, 4, 3
+SCENE = (256, 512)   # RGB, the dry run's shape
+STEPS = 3
 ENV_VARS = ("WORLD_SIZE", "RANK", "MASTER_ADDR", "MASTER_PORT", "LOCAL_RANK",
-            "SLURM_NTASKS", "SLURM_JOB_NUM_NODES", "SLURM_PROCID",
-            "OMPI_COMM_WORLD_SIZE", "OMPI_COMM_WORLD_RANK", "PMI_SIZE",
-            "PMI_RANK", "COORDINATOR_ADDRESS", "JAX_COORDINATOR_ADDRESS")
-
-WORKER = r"""
-import json, sys
-import numpy as np
-import torch
-import torch.distributed as dist
-from obia_tpu_torch.models import pipeline as tp
-from obia_tpu_torch.parallel.distributed import (initialize, is_coordinator,
-                                                 process_info)
-from obia_tpu_torch.parallel.mesh import make_mesh, shard_raster
-from obia_tpu_torch.parallel.mosaic import (mosaic_pipeline,
-                                            segment_mosaic_device)
-
-rank, port, out = int(sys.argv[1]), sys.argv[2], sys.argv[3]
-H, W, C, n_seg, n_cls, steps = (int(v) for v in sys.argv[4:10])
-initialize(coordinator_address=f"127.0.0.1:{port}", num_processes=2,
-           process_id=rank, backend="gloo", timeout_s=60)
-initialize(coordinator_address="127.0.0.1:1", num_processes=2,
-           process_id=rank)  # already initialised: a no-op
-res = {"info": process_info(), "coord": is_coordinator()}
-t = torch.full((1, 4), float(rank + 1))
-dist.all_reduce(t)
-res["total"] = float(t.sum())
-
-mesh = make_mesh(8, ["cpu"], distributed=True)
-res["held"] = list(mesh.shards())
-try:
-    make_mesh(3, ["cpu"], distributed=True)
-except ValueError:
-    res["ragged_rows_refused"] = True
-rng = np.random.default_rng(0)
-scene = rng.random((H, W, C)).astype(np.float32)
-step, init, (gh, gw, K) = tp.make_sharded_train_step(mesh, H, W, C, n_seg,
-                                                     n_cls)
-targets = torch.as_tensor(rng.integers(0, n_cls, K))
-image = shard_raster(mesh, torch.as_tensor(scene))[0]
-res["blocks"] = [[b is not None for b in row] for row in image.blocks]
-model, opt = init()
-centers = tp.initial_centers(torch.as_tensor(scene), gh, gw)
-losses = []
-for _ in range(steps):
-    model, opt, loss, centers = step(image, targets, centers, model, opt)
-    losses.append(loss.numpy())
-np.savez(out, losses=np.stack(losses), centers=centers.numpy(),
-         **tp.params_to_jax(model))
-for call in (lambda: mosaic_pipeline(None, mesh=mesh),
-             lambda: segment_mosaic_device(scene, mesh=mesh)):
-    try:
-        call()
-    except ValueError as exc:
-        res.setdefault("mosaic_refused", []).append(str(exc))
-dist.destroy_process_group()
-print("RESULT " + json.dumps(res), flush=True)
-"""
-
-
-def free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
+            "LOCAL_WORLD_SIZE", "SLURM_NTASKS", "SLURM_JOB_NUM_NODES",
+            "SLURM_PROCID", "SLURM_NTASKS_PER_NODE", "SLURM_LOCALID",
+            "OMPI_COMM_WORLD_SIZE", "OMPI_COMM_WORLD_RANK",
+            "OMPI_COMM_WORLD_LOCAL_SIZE", "OMPI_COMM_WORLD_LOCAL_RANK",
+            "PMI_SIZE", "PMI_RANK", "COORDINATOR_ADDRESS",
+            "JAX_COORDINATOR_ADDRESS")
 
 @pytest.fixture
 def no_cluster_env(monkeypatch):
@@ -99,33 +32,13 @@ def no_cluster_env(monkeypatch):
 
 
 @pytest.fixture(scope="module")
-def two_ranks(tmp_path_factory):
-    """Two gloo workers, each running WORKER: (their RESULT dicts, the
-    parameters, losses and centres each saved)."""
-    root = tmp_path_factory.mktemp("ranks")
-    port = str(free_port())
-    env = {"PYTHONPATH": str(REPO), "PATH": os.environ.get("PATH", ""),
-           "HOME": str(root), "OMP_NUM_THREADS": "2"}
-    args = [str(v) for v in (*SCENE, N_SEGMENTS, N_CLASSES, STEPS)]
-    procs = [subprocess.Popen(
-        [sys.executable, "-c", WORKER, str(r), port, str(root / f"{r}.npz"),
-         *args], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-        env=env, cwd=root) for r in (0, 1)]
-    outs = []
-    try:
-        for p in procs:
-            outs.append(p.communicate(timeout=180)[0])
-    finally:
-        for p in procs:
-            p.kill()
-            p.wait()
-    for p, out in zip(procs, outs):
-        assert p.returncode == 0, out[-3000:]
-    results = [json.loads(next(line for line in out.splitlines()
-                               if line.startswith("RESULT "))[7:])
-               for out in outs]
-    saved = [dict(np.load(root / f"{r}.npz")) for r in (0, 1)]
-    return results, saved
+def two_ranks():
+    """Phase 24 on the CPU: two gloo workers, each a new interpreter
+    running ``chip_smoke.py --two-rank-worker``; their RESULT dicts (the
+    helper raises where a worker fails or a check does not hold)."""
+    return chip_smoke.two_rank_check("cpu", device="cpu", size=SCENE[0],
+                                     width=SCENE[1], steps=STEPS,
+                                     timeout=180)
 
 
 def test_single_process_is_a_no_op(no_cluster_env):
@@ -168,6 +81,46 @@ def test_default_backend(monkeypatch, cards, world, want):
     assert tdist._default_backend(world) == want
 
 
+# rank 9 of 16, on the second of two nodes of 8 cards: local rank 1
+LAUNCHERS = {
+    "torchrun": {"WORLD_SIZE": "16", "RANK": "9", "LOCAL_WORLD_SIZE": "8",
+                 "LOCAL_RANK": "1"},
+    "slurm": {"SLURM_NTASKS": "16", "SLURM_PROCID": "9",
+              "SLURM_NTASKS_PER_NODE": "8", "SLURM_LOCALID": "1"},
+    "openmpi": {"OMPI_COMM_WORLD_SIZE": "16", "OMPI_COMM_WORLD_RANK": "9",
+                "OMPI_COMM_WORLD_LOCAL_SIZE": "8",
+                "OMPI_COMM_WORLD_LOCAL_RANK": "1"},
+}
+
+
+@pytest.mark.parametrize("launcher", sorted(LAUNCHERS))
+def test_two_nodes_take_nccl_on_their_local_card(no_cluster_env, launcher):
+    """Two nodes of 8 cards: NCCL, each rank on its card of its own node,
+    decided from the node's ranks, not the world's 16."""
+    for var, value in LAUNCHERS[launcher].items():
+        no_cluster_env.setenv(var, value)
+    no_cluster_env.setattr(torch.cuda, "device_count", lambda: 8)
+    calls = []
+    no_cluster_env.setattr(torch.cuda, "set_device", calls.append)
+    no_cluster_env.setattr(dist, "init_process_group",
+                           lambda backend, **kw: calls.append((backend, kw)))
+    tdist.initialize(coordinator_address="10.0.0.1:29500")
+    card, (backend, kw) = calls
+    assert (card, backend) == (1, "nccl")
+    assert (kw["world_size"], kw["rank"]) == (16, 9)
+    assert kw["init_method"] == "tcp://10.0.0.1:29500"
+
+
+@pytest.mark.parametrize("launcher", sorted(LAUNCHERS))
+def test_more_ranks_than_cards_on_a_node_raise(no_cluster_env, launcher):
+    for var, value in LAUNCHERS[launcher].items():
+        no_cluster_env.setenv(var, value)
+    no_cluster_env.setattr(torch.cuda, "device_count", lambda: 4)
+    with pytest.raises(RuntimeError, match="8 ranks on 4 card"):
+        tdist.initialize(coordinator_address="10.0.0.1:29500")
+    assert not dist.is_initialized()
+
+
 def test_two_nccl_ranks_on_one_card_raise(no_cluster_env):
     no_cluster_env.setattr(torch.cuda, "device_count", lambda: 1)
     with pytest.raises(RuntimeError, match="backend='gloo'"):
@@ -183,47 +136,30 @@ def test_distributed_mesh_needs_a_process_group():
 
 
 def test_two_process_reduction(two_ranks):
-    results, _ = two_ranks
-    for r, res in enumerate(results):
+    assert [res["rank"] for res in two_ranks] == [0, 1]
+    for r, res in enumerate(two_ranks):
         # 1 * 4 + 2 * 4 over both processes' (1, 4) tensors
         assert res["total"] == 12.0
-        assert res["coord"] is (r == 0)
+        assert res["coordinator"] is (r == 0)
         assert res["info"] == {"process_index": r, "process_count": 2,
                                "local_devices": 1, "global_devices": 2}
 
 
 def test_mesh_puts_one_shard_row_on_each_rank(two_ranks):
-    results, _ = two_ranks
-    for r, res in enumerate(results):
+    for r, res in enumerate(two_ranks):
         assert [tuple(ij) for ij in res["held"]] == [(r, j) for j in range(4)]
         assert res["blocks"] == [[i == r] * 4 for i in range(2)]
         assert res["ragged_rows_refused"]
 
 
 def test_mosaic_refuses_a_mesh_that_spans_ranks(two_ranks):
-    for res in two_ranks[0]:
+    for res in two_ranks:
         assert len(res["mosaic_refused"]) == 2
         assert all("spans ranks" in m for m in res["mosaic_refused"])
 
 
 def test_two_ranks_equal_one_process_bitwise(two_ranks):
-    _, saved = two_ranks
-    H, W, C = SCENE
-    rng = np.random.default_rng(0)
-    scene = rng.random((H, W, C)).astype(np.float32)
-    step, init, (gh, gw, K) = tp.make_sharded_train_step(
-        make_mesh(8, ["cpu"]), H, W, C, N_SEGMENTS, N_CLASSES)
-    targets = torch.as_tensor(rng.integers(0, N_CLASSES, K))
-    model, opt = init()
-    centers = tp.initial_centers(torch.as_tensor(scene), gh, gw)
-    losses = []
-    for _ in range(STEPS):
-        model, opt, loss, centers = step(torch.as_tensor(scene), targets,
-                                         centers, model, opt)
-        losses.append(loss.numpy())
-    want = {"losses": np.stack(losses), "centers": centers.numpy(),
-            **tp.params_to_jax(model)}
-    for got in saved:
-        assert set(got) == set(want)
-        for k in want:
-            assert np.array_equal(got[k], want[k]), k
+    for res in two_ranks:
+        assert res["bitwise"] == sorted(["losses", "centers", "w1", "b1",
+                                         "w2", "b2"])
+        assert len(res["times"]) == STEPS

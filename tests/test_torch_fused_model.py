@@ -96,6 +96,22 @@ def test_object_features_match_jax(h, w, c, k):
     assert not tf[2].any()   # count 0: mean, variance, log1p all 0
 
 
+def test_ordered_segment_sum_adds_in_row_order():
+    """The moment sums on the CPU add each segment's float32 rows in row
+    order (np.add.at's order), bitwise and run to run, at a size where a
+    multi-threaded ``index_put_(accumulate=True)`` would add them with
+    atomics in another order."""
+    rng = np.random.default_rng(11)
+    rows = (rng.random((256 * 256, 9)) * 1000).astype(np.float32)
+    seg = rng.integers(0, 256, 256 * 256)
+    want = np.zeros((256, 9), np.float32)
+    np.add.at(want, seg, rows)
+    for _ in range(3):
+        got = tp._ordered_segment_sum(torch.as_tensor(rows),
+                                      torch.as_tensor(seg), 256)
+        assert np.array_equal(got.numpy(), want)
+
+
 def test_standardize_is_population_std():
     rng = np.random.default_rng(5)
     f = (rng.normal(3.0, 2.0, (40, 9)) * rng.random(9) * 10).astype(
