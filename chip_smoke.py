@@ -98,10 +98,10 @@ any failure raises and exits non-zero:
 14. drive config 3 of ``bench.py`` at its default size: ``build_scene(2048,
    2048)`` written as an uncompressed GeoTIFF, then
    ``create_tiled_segments(raster, out, tile_size=512, buffer=64,
-   n_segments=700)`` on the card, once cold and once warm, with the warm
-   run's stage split (host clock, not synced) and MP/s; checks: every tile
-   ``done`` and none ``failed`` in the manifest (after every run of config
-   3), ``segments.gpkg`` read back with N rows and ``segment_id`` 1..N,
+   n_segments=700)`` on the card, once (host-bound: a second run took the
+   same time), with its stage split (host clock, not synced) and MP/s;
+   checks: every tile ``done`` and none ``failed`` in the manifest (after
+   every run of config 3), ``segments.gpkg`` read back with N rows and ``segment_id`` 1..N,
    the polygons covering more than 93% and at most 100% of the raster's
    area, and more than 99.5% of the pixels covered at most once (each
    polygon rasterised over its own bounding box); then ``create_objects``
@@ -156,7 +156,9 @@ any failure raises and exits non-zero:
    (uint16 GeoTIFFs, ``crown_raster``) with a checkpoint an epoch: each
    step's time (host clock, the loss read each step), the peak device
    memory, each epoch's loss (finite), ``epoch_2.npz`` loaded back equal on
-   every tensor, and one step traced (kernels, device busy and idle);
+   every tensor, one step traced (kernels, device busy and idle), and the
+   step of ``make_train_step`` (cuDNN's deterministic algorithms) against
+   the same step with cuDNN's defaults, 10 each in alternating blocks;
    ``predict`` on a 4096^2 x 10 uint16 scene, cold and warm, then with the
    stages synced (read, scale, forward, decode, NMS) at scores >= 0.5 and
    >= 0.05, every box inside the raster; the scene's uint8 raster scaled
@@ -195,7 +197,15 @@ any failure raises and exits non-zero:
    check the shards each holds and the mosaic's refusal of a mesh that
    spans ranks, and run 3 steps at 1024^2 with one shard row each
    (``make_mesh(8, ["cuda:0"], distributed=True)``): parameters, losses and centres equal bit for bit
-   to the same steps in this process; each rank's wall and step times.
+   to the same steps in this process; each rank's wall and step times;
+25. the bench command (``obia_tpu_torch/bench.py``), one new process a
+   configuration: ``python -m obia_tpu_torch.bench --config N`` for configs
+   1, 4, 2 and 5 at their default sizes (4096^2, 4096^2 x 8, 1024^2,
+   4096^2 on the 2 x 4 mesh; the stand-in forest) and config 3 at 1024^2
+   with ``OBIA_BENCH_RUNS=1``: each exits 0 and its last line is a row with
+   MP/s > 0, the card's name and power limit, and a launch of each of its
+   path's kernels; configs 4, 2, 5 and 3 count the objects of phases 4, 8,
+   11 and 15 (the card's run) on the same scene, size and device.
 
 After the build a line gives the quickshift kernels' registers, spilled
 bytes and pixels a thread (P) as the library reports them. The last two
@@ -217,11 +227,12 @@ written once. ``glcm_sums`` also reports ``launches_rasterised`` (phase
 18's warm call) and ``bound_ms_layout``: the same with the band charged
 the 32-byte sectors that hold it in the interleaved (H, W, C) image, the
 least a kernel that reads the band in place can take. No one PyTorch
-call computes any of the four, so ``library_ms`` is null. The script
-needs no network, JAX, pandas or sklearn (with sklearn importable, the
-forest is fitted by it; without, a seeded numpy forest stands in; the
-MLP and ``classify(method="mlp")`` need neither), and imports nothing of
-the JAX package.
+call computes any of the four, so ``library_ms`` is null;
+``launches_bench`` gives each kernel's launches in phase 25's rows, by
+config. The script needs no network, JAX, pandas or sklearn (configs 4
+and 1 predict with the bench's seeded stand-in forest, chosen and not
+probed for; the MLP and ``classify(method="mlp")`` need neither), and
+imports nothing of the JAX package.
 """
 from __future__ import annotations
 
@@ -234,22 +245,25 @@ import time
 
 import numpy as np
 
+from obia_tpu_torch import bench as tbench
+from obia_tpu_torch.bench import (C3_KW, N_SEGMENTS, N_TREES, QS_KW,
+                                  as_image, build_scene, card_line,
+                                  config4_scene, forest_fields,
+                                  reset_launches, training_table,
+                                  write_scene)
+
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SIZE = 4096
 CROSS_SIZE = 512
 BANDS = 8
-N_SEGMENTS = 3000
-N_TREES = 300
 QS_SIZE = 1024          # config 2's own size (bench.py)
 QS_CROSS_SIZE = 256
 QS_BIG = 4096           # the kernels alone, as the JAX package timed them
-QS_KW = dict(method="quickshift", ratio=1.0, kernel_size=5, max_dist=10.0)
 C5_SIZE = 4096          # bench.py config 5 with OBIA_BENCH5_REAL=1
 C5_CROSS_SIZE = 768     # bench.py's default size for config 5
 C5_SHARDS = 8           # the 2 x 4 mesh
 C3_SIZE = 2048          # bench.py's default run of config 3
 C3_CROSS_SIZE = 1024
-C3_KW = dict(tile_size=512, buffer=64, n_segments=700)
 CANOPY_SIZE = 2048      # a 4.2 km^2 plot at 1 m
 CANOPY_CROSS_SIZE = 512
 CANOPY_PITCH = 20       # px between crown centres: ~10.5 k crowns at 2048^2
@@ -277,77 +291,6 @@ SFU_OPS_PER_MS = 132 * 16 * 1.98e6  # 132 SMs x 16 exponentials a clock
 
 def log(msg: str) -> None:
     print(msg, flush=True)
-
-
-def build_scene(h=2048, w=2048, c=3, seed=0):
-    """bench.py's synthetic scene (smooth bands plus noise, uint8), copied
-    so the script needs nothing of the repo's JAX side; a CPU test holds the
-    two equal."""
-    rng = np.random.default_rng(seed)
-    yy, xx = np.mgrid[0:h, 0:w]
-    base = np.stack([
-        np.sin(yy / 97.0) + np.cos(xx / 131.0),
-        np.sin((yy + xx) / 151.0),
-        np.cos(yy / 71.0) * np.sin(xx / 113.0),
-        ((yy // 256 + xx // 256) % 5).astype(np.float32) / 4.0,
-    ], axis=-1)[:, :, :c].astype(np.float32)
-    noise = rng.normal(0, 0.05, (h, w, c)).astype(np.float32)
-    arr = base + noise
-    lo, hi = arr.min(), arr.max()
-    return (255.0 * (arr - lo) / (hi - lo)).astype(np.uint8)
-
-
-def card_line() -> str:
-    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True, timeout=60)
-    return out.stdout.strip().splitlines()[0]
-
-
-def config4_scene(size: int) -> np.ndarray:
-    """The config-4 scene exactly as bench.py builds it (8 uint8 bands)."""
-    base3 = build_scene(h=size, w=size, c=4).astype(np.float32)
-    more = np.stack([np.roll(base3[..., i % 4], 17 * (i + 1), axis=i % 2)
-                     for i in range(4)], axis=-1)
-    return np.concatenate([base3, more], axis=-1).astype(np.uint8)
-
-
-def as_image(scene: np.ndarray):
-    from obia_tpu_torch.geometry.affine import Affine
-    from obia_tpu_torch.handlers.geotif import image_from_array
-    h = scene.shape[0]
-    return image_from_array(scene, Affine(1.0, 0, 0, 0, -1.0, h),
-                            crs="EPSG:32633")
-
-
-def forest_fields(X: np.ndarray, n_trees: int, depth: int = 8,
-                  seed: int = 0) -> dict:
-    """A random full binary forest (heap-ordered nodes) with thresholds
-    drawn from the feature quantiles, as numpy tables: the model when
-    sklearn is absent."""
-    rng = np.random.default_rng(seed)
-    n_int = 2 ** depth - 1
-    n_nodes = 2 ** (depth + 1) - 1
-    feature = np.full((n_trees, n_nodes), -1, np.int64)
-    feature[:, :n_int] = rng.integers(0, X.shape[1], (n_trees, n_int))
-    q = rng.uniform(0.1, 0.9, (n_trees, n_int))
-    rank = np.floor(q * (X.shape[0] - 1)).astype(np.int64)
-    threshold = np.zeros((n_trees, n_nodes), np.float32)
-    threshold[:, :n_int] = np.sort(X, axis=0)[rank, feature[:, :n_int]]
-    idx = np.arange(n_nodes)
-    left = np.where(idx < n_int, 2 * idx + 1, idx)[None].repeat(n_trees, 0)
-    right = np.where(idx < n_int, 2 * idx + 2, idx)[None].repeat(n_trees, 0)
-    p = rng.uniform(0, 1, (n_trees, n_nodes, 1)).astype(np.float32)
-    proba = np.concatenate([p, 1 - p], axis=2)
-    return dict(feature=feature, threshold=threshold, left=left, right=right,
-                leaf_proba=proba, classes=np.array([0, 1]), max_depth=depth)
-
-
-def numpy_forest(X: np.ndarray, n_trees: int, depth: int = 8, seed: int = 0):
-    """:func:`forest_fields` as the port's forest tables on the card."""
-    from obia_tpu_torch.classification.forest import ForestArrays
-    return ForestArrays.from_numpy(**forest_fields(X, n_trees, depth, seed),
-                                   device="cuda")
 
 
 def sklearn_like_forest(fields: dict, seed: int = 1):
@@ -401,52 +344,6 @@ def forest_walk(rf, X: np.ndarray):
         proba += t.value[node, 0, :]
         base += t.value[0, 0, :]
     return proba / len(rf.estimators_), base / len(rf.estimators_)
-
-
-def training_table(table, seed: int = 0):
-    """bench._featurize_classify's table: features without all-NaN columns,
-    median-split target, seeded 20% training subset."""
-    cols = [c for c in table.columns if c != "segment_id"]
-    X = np.stack([table[c] for c in cols], axis=1).astype(np.float64)
-    X = np.nan_to_num(X[:, ~np.isnan(X).all(axis=0)])
-    y = (X[:, 0] > np.median(X[:, 0])).astype(int)
-    n_train = max(10, int(len(X) * 0.2))
-    idx = np.random.default_rng(seed).permutation(len(X))[:n_train]
-    return X, y, idx
-
-
-def featurize_classify(table, device, seed: int = 0) -> np.ndarray:
-    """Config 4's classify tail: fit a forest -> predict_proba of every
-    object."""
-    import torch
-
-    from obia_tpu_torch.classification.forest import forest_proba
-    X, y, idx = training_table(table, seed)
-    try:
-        from obia_tpu_torch.classification.forest import \
-            TorchForestClassifier
-        clf = TorchForestClassifier(device=device, n_estimators=N_TREES,
-                                    random_state=0)
-    except ImportError:  # sklearn is not installed
-        forest = numpy_forest(X[idx], N_TREES)
-        return forest_proba(forest.to(device), torch.as_tensor(
-            X, dtype=torch.float32, device=device)).cpu().numpy()
-    clf.fit(X[idx], y[idx])
-    return clf.predict_proba(X)
-
-
-def mlp_classify(table, device, seed: int = 0) -> np.ndarray:
-    """Config 2's classify tail: fit a (64,) MLP for max_iter=60 ->
-    predict_proba of every object."""
-    from obia_tpu_torch import telemetry
-    from obia_tpu_torch.classification.mlp import TorchMLPClassifier
-    X, y, idx = training_table(table, seed)
-    clf = TorchMLPClassifier(hidden_layer_sizes=(64,), max_iter=60,
-                             random_state=0, device=device)
-    with telemetry.stage("classify.fit"):
-        clf.fit(X[idx], y[idx])
-    with telemetry.stage("classify.predict"):
-        return clf.predict_proba(X)
 
 
 def classify_phase(table, device: str = "cuda") -> None:
@@ -575,54 +472,28 @@ def classify_phase(table, device: str = "cuda") -> None:
 
 
 def run_slice(image, device, **seg_kw):
-    """Config 4: segment + featurize/classify, synchronised; returns
+    """Config 4 (``bench.run_config4``, the stand-in forest); returns
     (segments, proba, seconds). ``seg_kw`` (``sigma``) go to SLIC."""
-    import torch
-
-    from obia_tpu_torch.segmentation.segment import segment
     t0 = time.perf_counter()
-    s = segment(image, segmentation_bands=[0, 3, 6],
-                statistics_bands=list(range(BANDS)), method="slic",
-                n_segments=N_SEGMENTS, compactness=10, device=device,
-                **seg_kw)
-    proba = featurize_classify(s.table, device)
-    s.table.geometry  # join the polygonisation thread
-    if torch.device(device).type == "cuda":
-        torch.cuda.synchronize()
+    s, proba = tbench.run_config4(image, device, tbench.STAND_IN, **seg_kw)
     return s, proba, time.perf_counter() - t0
 
 
 def run_config2(image, device, **seg_kw):
-    """Config 2: quickshift segment + MLP fit/predict, synchronised; returns
-    (segments, proba, seconds). ``seg_kw`` (``sigma``) go to quickshift."""
-    import torch
-
-    from obia_tpu_torch.segmentation.segment import segment
+    """Config 2 (``bench.run_config2``); returns (segments, proba,
+    seconds). ``seg_kw`` (``sigma``) go to quickshift."""
     t0 = time.perf_counter()
-    s = segment(image, device=device, **QS_KW, **seg_kw)
-    proba = mlp_classify(s.table, device)
-    s.table.geometry  # join the polygonisation thread
-    if torch.device(device).type == "cuda":
-        torch.cuda.synchronize()
+    s, proba = tbench.run_config2(image, device, **seg_kw)
     return s, proba, time.perf_counter() - t0
 
 
 def run_config5(image, device):
-    """Config 5: ``mosaic_pipeline`` over a 2 x 4 mesh of shards on
-    ``device``, synchronised; returns (result, None, seconds), the result
-    with the object table, the layer and the host label raster."""
+    """Config 5 (``bench.run_config5``: ``mosaic_pipeline`` over a 2 x 4
+    mesh of shards on ``device``); returns (result, None, seconds), the
+    result with the object table, the layer and the host label raster."""
     import types
-
-    import torch
-
-    from obia_tpu_torch.parallel.mesh import make_mesh
-    from obia_tpu_torch.parallel.mosaic import mosaic_pipeline
     t0 = time.perf_counter()
-    objects = mosaic_pipeline(image, n_segments=N_SEGMENTS, compactness=10.0,
-                              mesh=make_mesh(C5_SHARDS, [device]))
-    objects.geometry  # join the polygonisation thread
-    if torch.device(device).type == "cuda":
-        torch.cuda.synchronize()
+    objects = tbench.run_config5(image, device)
     seconds = time.perf_counter() - t0
     return types.SimpleNamespace(
         table=objects, layer=objects.layer,
@@ -1138,34 +1009,17 @@ def sigma_check(run, scene, bands, what: str) -> None:
 def config3_scene(size: int, root: str) -> str:
     """bench.py's config-3 raster: ``build_scene(size, size)`` written as
     an uncompressed GeoTIFF; returns its path."""
-    from obia_tpu_torch.geometry.affine import Affine
-    from obia_tpu_torch.io.tiff import write_tiff
-    path = os.path.join(root, f"scene_{size}.tif")
-    write_tiff(path, build_scene(h=size, w=size),
-               transform=Affine(1.0, 0, 0, 0, -1.0, size), crs="EPSG:32633",
-               compression="none")
-    return path
+    return write_scene(os.path.join(root, f"scene_{size}.tif"),
+                       build_scene(h=size, w=size))
 
 
 def run_config3(raster: str, out_dir: str, device: str, **kw):
-    """Config 3: ``create_tiled_segments`` as bench.py times it (tile 512,
-    buffer 64, n_segments 700), synchronised; raises if the manifest marks
-    any tile failed. Returns (segments, seconds)."""
-    import torch
-
-    from obia_tpu_torch.checkpoint import TileManifest
-    from obia_tpu_torch.utils.tiling import create_tiled_segments
+    """Config 3 (``bench.run_config3``: tile 512, buffer 64, n_segments
+    700; raises if the manifest marks any tile failed or not done).
+    Returns (segments, seconds)."""
     t0 = time.perf_counter()
-    out = create_tiled_segments(raster, out_dir, **C3_KW, device=device,
-                                **kw)
-    if torch.device(device).type == "cuda":
-        torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
-    manifest = TileManifest(os.path.join(out_dir, "manifest.json"))
-    if manifest.failed() or not all(
-            v["status"] == "done" for v in manifest.state.values()):
-        raise AssertionError(f"config 3 tiles not done: {manifest.state}")
-    return out, seconds
+    out = tbench.run_config3(raster, out_dir, device, **kw)
+    return out, time.perf_counter() - t0
 
 
 def coverage(geoms, size: int):
@@ -1193,33 +1047,29 @@ def coverage(geoms, size: int):
 
 
 def config3_phase(size: int, root: str, card: str) -> None:
-    """Config 3 at size^2 on the card: cold and warm runs with the stage
-    split of the warm one, the output read back, and its coverage."""
+    """Config 3 at size^2 on the card, once (host-bound: a cold and a warm
+    run were within 0.2 s of 128 s on the H100, and the tiles' SLIC is warm
+    from the earlier phases): its stage split, the output read back, and
+    its coverage."""
     from obia_tpu_torch import telemetry
     from obia_tpu_torch.io.gpkg import read_gpkg
-    from obia_tpu_torch.ops import glcm_kernel
-    from obia_tpu_torch.ops import quickshift_kernel as qk
     raster = config3_scene(size, root)
     mp = size * size / 1e6
-    cold_out, cold = run_config3(raster, os.path.join(root, "cold"), "cuda")
     telemetry.reset()
-    glcm_kernel.launches = glcm_kernel.hist_launches = 0
-    qk.launches.update(qs_density=0, qs_parent=0)
-    warm_dir = os.path.join(root, "warm")
-    out, warm = run_config3(raster, warm_dir, "cuda")
-    launches = {"glcm_sums": glcm_kernel.launches,
-                "glcm_hist": glcm_kernel.hist_launches, **qk.launches}
+    reset_launches()
+    out_dir = os.path.join(root, "out")
+    out, secs = run_config3(raster, out_dir, "cuda")
+    launches = tbench.kernel_launches()
     split = telemetry.report()
     n = len(out)
-    log(f"config 3 {size}^2 RGB ({C3_KW}): {n} "
-        f"segments (cold run {len(cold_out)}), cold {cold:.3f} s, warm "
-        f"{warm:.3f} s, {mp / warm:.4f} MP/s warm ({card}); hand-kernel "
-        f"launches {launches} (none on this path)")
+    log(f"config 3 {size}^2 RGB ({C3_KW}): {n} segments, {secs:.3f} s, "
+        f"{mp / secs:.4f} MP/s ({card}); hand-kernel launches {launches} "
+        f"(none on this path)")
     for name in sorted(split):
         r = split[name]
         log(f"  stage {name}: {1000 * r['total_s']:.1f} ms in {r['count']} "
             f"calls")
-    cols, geoms, _ = read_gpkg(os.path.join(warm_dir, "segments.gpkg"))
+    cols, geoms, _ = read_gpkg(os.path.join(out_dir, "segments.gpkg"))
     if cols["segment_id"] != list(range(1, n + 1)) or len(geoms) != n:
         raise AssertionError("segments.gpkg: rows or segment_id 1..N wrong")
     area = sum(g.area for g in geoms) / (size * size)
@@ -1271,10 +1121,11 @@ def config3_objects(layer, raster: str, device: str):
     return objs
 
 
-def config3_cross_check(size: int, root: str) -> None:
+def config3_cross_check(size: int, root: str) -> int:
     """Config 3 at size^2 on the card and on the CPU: segment counts within
     1%, rasterised partitions agreeing on >= 99.5% of the pixels; then the
-    card's run resumed, which must segment no tile."""
+    card's run resumed, which must segment no tile. Returns the card's
+    segment count."""
     from obia_tpu_torch.utils import tiling
     raster = config3_scene(size, root)
     gpu_dir = os.path.join(root, f"gpu_{size}")
@@ -1301,6 +1152,7 @@ def config3_cross_check(size: int, root: str) -> None:
         f"{len(again)} segments, {resumed:.3f} s")
     if calls or len(again) != len(gpu):
         raise AssertionError("the resumed run segmented a tile")
+    return len(gpu)
 
 
 def canopy_rasters(size: int, seed: int = 0):
@@ -1533,14 +1385,6 @@ def ql2_cloud(size: int, n: int, seed: int) -> dict:
             "Z": np.where(ground, rng.uniform(0, 1, n),
                           rng.uniform(1, 30, n)),
             "Intensity": rng.integers(0, 65536, n, dtype=np.uint16)}
-
-
-def reset_launches() -> None:
-    """Every kernel wrapper's launch count to 0."""
-    from obia_tpu_torch.ops import glcm_kernel
-    from obia_tpu_torch.ops import quickshift_kernel as qk
-    glcm_kernel.launches = glcm_kernel.hist_launches = 0
-    qk.launches.update(qs_density=0, qs_parent=0)
 
 
 def trace_kernels(log_dir: str) -> dict:
@@ -1922,7 +1766,8 @@ def detection_phase(root: str, card: str, seed: int):
     from obia_tpu_torch import telemetry
     from obia_tpu_torch.detection import (build_detection_model, predict,
                                           train_model)
-    from obia_tpu_torch.detection.train import make_train_step
+    from obia_tpu_torch.detection.train import (_pad_batch, batch_loss,
+                                                make_train_step)
     from obia_tpu_torch.detection.dataset import (DataLoader,
                                                   TreeDetectionDataset)
     from obia_tpu_torch.detection.metrics import evaluate_model
@@ -1972,8 +1817,8 @@ def detection_phase(root: str, card: str, seed: int):
         "tensors")
     del back
     twin = copy.deepcopy(model)
-    step = make_train_step(twin, torch.optim.Adam(twin.parameters(),
-                                                  lr=1e-4))
+    opt = torch.optim.Adam(twin.parameters(), lr=1e-4)
+    step = make_train_step(twin, opt)
     images, targets = next(iter(DataLoader(ds, batch_size=2, seed=1)))
     step(images, targets)
     torch.cuda.synchronize()
@@ -1981,7 +1826,33 @@ def detection_phase(root: str, card: str, seed: int):
         step(images, targets)
     log(f"  one traced train step: "
         f"{trace_span(os.path.join(root, 'trace_step'))}")
-    del twin, step
+
+    def default_step():
+        """The same step with cuDNN's default (atomic) algorithms."""
+        imgs, boxes, labels, hw = _pad_batch(list(images), list(targets),
+                                             twin.device)
+        loss = batch_loss(twin, imgs, boxes, labels, hw)
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        opt.step()
+        return loss.detach()
+
+    times = {"deterministic": [], "default": []}
+    default_step()
+    for _ in range(2):
+        for what, fn in (("deterministic", lambda: step(images, targets)),
+                         ("default", default_step)):
+            for _ in range(5):
+                t0 = time.perf_counter()
+                float(fn())
+                times[what].append(1000 * (time.perf_counter() - t0))
+    med = {k: float(np.median(v)) for k, v in times.items()}
+    log(f"  train step (batch 2 x {DET_TILE}^2, the loss read each step), "
+        f"median of 10 alternating in blocks of 5: make_train_step "
+        f"(cuDNN deterministic) {med['deterministic']:.1f} ms, cuDNN's "
+        f"default algorithms {med['default']:.1f} ms: the flag costs "
+        f"{med['deterministic'] - med['default']:+.1f} ms a step ({card})")
+    del twin, step, opt
 
     scene, _ = crown_raster(DET_SCENE, DET_BANDS, seed + 100)
     path = os.path.join(root, "scene.tif")
@@ -2150,9 +2021,9 @@ def detection_overfit_on_card() -> list:
     """Phase 21 (b): tests/test_detection.py:243's overfit run on the card
     (two 128^2 scenes, width 8, FPN 32, stages (1, 1, 1, 1), Adam 2e-3, 400
     steps): the loss below 10% of its first value, AP@0.5 >= 0.9 through
-    ``evaluate_model``. cuDNN's deterministic algorithms only: its default
-    weight gradients add with atomics, so two runs of the 400 float32 steps
-    part ways and end on different models. Returns the losses."""
+    ``evaluate_model``. ``make_train_step`` runs cuDNN's deterministic
+    algorithms (its default weight gradients add with atomics, so two runs
+    of the 400 float32 steps would part ways). Returns the losses."""
     import torch
 
     from obia_tpu_torch.detection import build_detection_model
@@ -2181,15 +2052,10 @@ def detection_overfit_on_card() -> list:
     model = build_detection_model(seed=0, image_size=(S, S), **DET_SMALL)
     step = make_train_step(model, torch.optim.Adam(model.parameters(),
                                                    lr=2e-3))
-    was = torch.backends.cudnn.deterministic
-    torch.backends.cudnn.deterministic = True
-    try:
-        t0 = time.perf_counter()
-        losses = [float(step(imgs, targets)) for _ in range(400)]
-        secs = time.perf_counter() - t0
-        res = evaluate_model(model, Scenes(), score_threshold=0.05)
-    finally:
-        torch.backends.cudnn.deterministic = was
+    t0 = time.perf_counter()
+    losses = [float(step(imgs, targets)) for _ in range(400)]
+    secs = time.perf_counter() - t0
+    res = evaluate_model(model, Scenes(), score_threshold=0.05)
     log(f"phase 21 (b), overfit on the card: loss {losses[0]:.4f} -> "
         f"{losses[-1]:.6f} in 400 steps ({1000 * secs / 400:.2f} ms a "
         f"step), AP@0.5 {res['AP']:.4f} ({res['n_predictions']} "
@@ -2670,6 +2536,49 @@ def two_rank_check(card: str, device: str = "cuda:0",
     return results
 
 
+def bench_phase(card: str, want: dict) -> dict:
+    """Phase 25: ``python -m obia_tpu_torch.bench --config N`` in a new
+    process for configs 1, 4, 2 and 5 at their default sizes and config 3
+    at ``C3_CROSS_SIZE``^2 with ``OBIA_BENCH_RUNS=1``: each exits 0, its
+    last line is a row with ``value`` > 0 whose kernels launched, and its
+    ``n_objects`` equals ``want[config]`` (the same scene, size and device
+    in an earlier phase). Returns the rows by config."""
+    need = {1: ("glcm_sums",), 4: ("glcm_sums",),
+            2: ("glcm_sums", "qs_density", "qs_parent"),
+            5: ("glcm_sums", "glcm_hist"), 3: ()}
+    rows = {}
+    for config, size, env in ((1, None, {}), (4, None, {}), (2, None, {}),
+                              (5, None, {}),
+                              (3, C3_CROSS_SIZE, {"OBIA_BENCH_RUNS": "1"})):
+        cmd = [sys.executable, "-m", "obia_tpu_torch.bench", "--config",
+               str(config), *([str(size)] if size else [])]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                              timeout=400, env={**os.environ, **env})
+        wall = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"{' '.join(cmd[1:])} exited "
+                                 f"{proc.returncode}: {proc.stderr[-3000:]}")
+        row = json.loads(proc.stdout.strip().splitlines()[-1])
+        rows[config] = row
+        log(f"phase 25, {' '.join(cmd[2:])}: {row['config']}, "
+            f"{row['n_objects']} objects, {row['value']:.4f} MP/s (best "
+            f"{row['elapsed_s']:.3f} s, first {row['first_run_s']:.3f} s, "
+            f"{row['megapixels']:.3f} MP), forest {row['forest']}, "
+            f"launches {row['launches']}; process {wall:.1f} s "
+            f"({row['device']})")
+        missed = [k for k in need[config] if row["launches"][k] < 1]
+        if not row["value"] > 0 or row["device"] != card or missed:
+            raise AssertionError(f"config {config}'s row: value "
+                                 f"{row['value']}, device {row['device']},"
+                                 f" no launches of {missed}")
+        if config in want and row["n_objects"] != want[config]:
+            raise AssertionError(f"config {config}: {row['n_objects']} "
+                                 f"objects, the earlier phase "
+                                 f"{want[config]}")
+    return rows
+
+
 def main() -> None:
     import argparse
 
@@ -2976,7 +2885,7 @@ def main() -> None:
     root = tempfile.mkdtemp(prefix="obia_config3_")
     try:
         config3_phase(C3_SIZE, root, card)
-        config3_cross_check(C3_CROSS_SIZE, root)
+        n3 = config3_cross_check(C3_CROSS_SIZE, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -3000,12 +2909,15 @@ def main() -> None:
     sharded_train_phase(card)
     two_rank_check(card)
 
+    # -- 25. the bench command, one configuration a process -----------------
+    bench_rows = bench_phase(card, {4: n_obj, 2: n2, 5: n5, 3: n3})
+
     log(card_line())
     qs_r, qs_md = 15, QS_KW["max_dist"]  # as qs_time measures
     qd_bound, qp_bound = qs_bound(x2, qs_r), qs_bound(x2, qs_r, qs_md)
     log(f"quickshift bounds at {QS_SIZE}^2: density {qd_bound}, parent "
         f"{qp_bound}")
-    log(json.dumps({"kernels": [
+    kernels = [
         {"name": "glcm_sums", "route": "cuda",
          "source": "obia_tpu_torch/csrc/glcm.cu",
          "replaces": "obia_tpu/ops/glcm_pallas.py:220",
@@ -3040,7 +2952,11 @@ def main() -> None:
          "function": "glcm_spanner_hist_kernel",
          "replaces": "obia_tpu/ops/glcm_pallas.py:258",
          "launches": hist5, "max_abs_err": float(hist_err),
-         "bound_by": "bytes", "library_ms": None, **h}]}))
+         "bound_by": "bytes", "library_ms": None, **h}]
+    for k in kernels:  # phase 25's launches, by config
+        k["launches_bench"] = {str(c): row["launches"][k["name"]]
+                               for c, row in bench_rows.items()}
+    log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

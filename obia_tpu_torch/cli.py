@@ -1,6 +1,7 @@
 """Command-line interface (port of ``obia_tpu/cli.py``): ``segment``,
 ``tiled-segments``, ``chm-seeds``, ``density-seeds``, ``canonical-seeds``,
-``cost-surface`` and ``info``, runnable as ``obia-tpu-torch <command>``.
+``cost-surface``, ``bench`` (:mod:`obia_tpu_torch.bench`, in this process)
+and ``info``, runnable as ``obia-tpu-torch <command>``.
 
 ``click`` is imported by :func:`build_cli`, not with the module, so the
 module imports where click is not installed. Every command but ``info``
@@ -133,6 +134,23 @@ def build_cli():
         from .utils.cost import make_cost_surface
         w = tuple(float(x) for x in weights.split(","))
         make_cost_surface(wv3, chm, out, slic=slic, weights=w, device=device)
+
+    @main.command("bench")
+    @click.option("--size", default=2048, show_default=True)
+    @click.option("--config", default=None, type=click.IntRange(1, 5),
+                  help="one configuration (default: the sweep)")
+    @click.option("--forest", default="stand-in", show_default=True,
+                  type=click.Choice(["stand-in", "fit"]),
+                  help="configs 1 and 4's forest")
+    @click.option("--device", default=None,
+                  help="torch device (default: the card)")
+    def bench_cmd(size, config, forest, device):
+        """End-to-end throughput benchmark (one JSON line)."""
+        from . import bench
+        try:
+            bench.run(size, config, forest, device)
+        except bench.SweepFailed as exc:
+            raise click.ClickException(str(exc))
 
     @main.command("info")
     def info_cmd():

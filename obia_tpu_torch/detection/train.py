@@ -7,11 +7,14 @@ loss printed each epoch, the trained model returned. Each step pads the
 batch to a common multiple of 128 (as the reference: BatchNorm's batch
 statistics include the zero pad), runs the forward in training mode,
 sums the per-image focal and box losses as ``cls.mean() + box.mean()``,
-and takes one Adam step. Ground truth stays one variable-length tensor per
-image (the JAX package pads it to fixed slots for static shapes).
+and takes one Adam step; the forward and backward use cuDNN's
+deterministic algorithms, so training repeats run to run. Ground truth
+stays one variable-length tensor per image (the JAX package pads it to
+fixed slots for static shapes).
 """
 from __future__ import annotations
 
+import contextlib
 import os
 from typing import Callable, List, Sequence, Tuple
 
@@ -64,17 +67,39 @@ def batch_loss(model: DetectionModel, images: torch.Tensor,
     return cls_l.mean() + box_l.mean()
 
 
+@contextlib.contextmanager
+def _deterministic_cudnn():
+    """cuDNN's deterministic algorithms, without autotuning, inside the
+    block; the caller's two flags come back after it. Only these two:
+    ``torch.backends.cudnn.flags`` would also reset TF32, which the package
+    keeps off."""
+    cudnn = torch.backends.cudnn
+    was = cudnn.benchmark, cudnn.deterministic
+    cudnn.benchmark, cudnn.deterministic = False, True
+    try:
+        yield
+    finally:
+        cudnn.benchmark, cudnn.deterministic = was
+
+
 def make_train_step(model: DetectionModel,
                     optimizer: torch.optim.Optimizer) -> Callable:
     """``step(images, targets) -> loss tensor``: pad the batch onto the
     model's device, compute :func:`batch_loss`, back-propagate and take
-    one optimiser step."""
+    one optimiser step.
+
+    The forward and backward run with cuDNN's deterministic algorithms and
+    no autotuning, so two runs of the same steps give the same model, as
+    the reference's training does: the default weight-gradient algorithms
+    add with atomics. The flags are set for the step only and restored
+    after it."""
     def step(images, targets):
         imgs, boxes, labels, hw = _pad_batch(list(images), list(targets),
                                              model.device)
-        loss = batch_loss(model, imgs, boxes, labels, hw)
-        optimizer.zero_grad(set_to_none=True)
-        loss.backward()
+        with _deterministic_cudnn():
+            loss = batch_loss(model, imgs, boxes, labels, hw)
+            optimizer.zero_grad(set_to_none=True)
+            loss.backward()
         optimizer.step()
         return loss.detach()
     return step

@@ -7,10 +7,12 @@ back (the rasterise path) with a LAS point cloud, the sharded mosaic on a
 2 x 4 CPU mesh, tiled segmentation with the ``sigma`` pre-blur, the canopy
 seed and cost-surface workflow, the detection subsystem: build, train
 on GeoTIFF tiles, predict; the fused model's forward and one sharded
-training step, and the process-group start-up on one process), and never
+training step, the process-group start-up on one process, and the bench's
+config 1 with its stand-in forest), and never
 loads jax, flax, optax, click,
-tqdm, matplotlib or OpenCV (the CLI module imports without click). Its sources and ``chip_smoke.py`` import neither jax
-nor ``obia_tpu``."""
+tqdm, matplotlib or OpenCV (the CLI module imports without click). Its
+sources and ``chip_smoke.py`` import neither jax, ``obia_tpu`` nor the
+repository's ``bench.py``."""
 import subprocess
 import sys
 import textwrap
@@ -141,6 +143,15 @@ SCRIPT = textwrap.dedent("""
     model, opt, loss, _ = step(fimg, torch.arange(K) % 4,
                                initial_centers(fimg, gh, gw), model, opt)
     assert bool(torch.isfinite(loss))
+    from obia_tpu_torch import bench
+    row = bench.run(64, 1, device="cpu")
+    assert row["forest"] == "stand-in" and row["n_objects"] > 3
+    try:
+        bench.run(64, 4, forest="fit", device="cpu")
+    except ImportError as exc:
+        assert "sklearn" in str(exc)
+    else:
+        raise AssertionError("forest='fit' ran without sklearn")
     for mod in BLOCKED:
         assert mod not in sys.modules, mod
     print("NO_JAX_OK", len(t), f, len(tq), len(tm))
@@ -286,9 +297,10 @@ def test_detection_runs_without_jax_pandas_sklearn_pil(tmp_path):
 
 def test_port_sources_never_import_jax():
     """No source of the port, nor chip_smoke.py, imports jax, flax, optax,
-    tqdm or the JAX package; PIL, matplotlib and OpenCV only inside a
-    function (a machine with only torch, numpy and scipy has none of
-    them)."""
+    tqdm, the JAX package or the repository's bench.py (the port has its
+    own, ``obia_tpu_torch/bench.py``); PIL, matplotlib and OpenCV only
+    inside a function (a machine with only torch, numpy and scipy has none
+    of them)."""
     bad = []
     sources = [*(REPO / "obia_tpu_torch").rglob("*.py"),
                REPO / "chip_smoke.py"]
@@ -299,7 +311,7 @@ def test_port_sources_never_import_jax():
                 continue
             top = words[1].split(".")[0]
             if top in ("jax", "jaxlib", "obia_tpu", "flax", "optax",
-                       "tqdm") or (top in ("PIL", "matplotlib", "cv2")
+                       "tqdm", "bench") or (top in ("PIL", "matplotlib", "cv2")
                                    and not line[:1].isspace()):
                 bad.append(f"{path}:{n}")
     assert not bad, bad

@@ -7,8 +7,8 @@ and dtypes, and each package reads the other's ``.npz``; a JAX-fitted MLP
 checkpoint loads into ``TorchMLPClassifier`` and predicts JAX's
 probabilities within atol 1e-6; every config's ``kwargs()`` drives the
 port's function and validates as JAX's does; the CLI's GeoPackages have the
-row counts of JAX's CLI, and it registers JAX's commands but the five whose
-modules are not ported yet.
+row counts of JAX's CLI, and it registers every command of JAX's CLI;
+``bench`` prints one parseable row.
 """
 import collections
 import json
@@ -20,7 +20,7 @@ import torch
 
 from obia_tpu_torch import checkpoint as tck
 
-UNPORTED_COMMANDS = {"bench"}
+UNPORTED_COMMANDS = set()
 
 
 def _jax_npz_only(monkeypatch):
@@ -303,6 +303,16 @@ def test_cli_info_with_a_card_mocked(monkeypatch):
     assert info["devices"] == ["NVIDIA H100 80GB HBM3"]
     assert isinstance(info["native_library"], bool)
     assert isinstance(info["kernel_library"], bool)
+
+
+def test_cli_bench_prints_one_row(monkeypatch):
+    monkeypatch.setenv("OBIA_BENCH_RUNS", "1")
+    out = _invoke(["bench", "--config", "1", "--size", "96", "--device",
+                   "cpu"])
+    row = json.loads(out.strip().splitlines()[-1])
+    assert row["config"] == "1-quickstart-slic-rf"
+    assert row["n_objects"] > 0 and row["value"] > 0
+    assert row["megapixels"] == 96 * 96 / 1e6 and row["device"] == "cpu"
 
 
 def test_cli_registers_jax_commands_but_the_unported():
