@@ -205,7 +205,26 @@ any failure raises and exits non-zero:
    with ``OBIA_BENCH_RUNS=1``: each exits 0 and its last line is a row with
    MP/s > 0, the card's name and power limit, and a launch of each of its
    path's kernels; configs 4, 2, 5 and 3 count the objects of phases 4, 8,
-   11 and 15 (the card's run) on the same scene, size and device.
+   11 and 15 (the card's run) on the same scene, size and device;
+26. the north-star scene, ``config4_scene(10000)`` (100 MP x 8 bands),
+   built once: (path 1) config 4 and (path 3) config 5's ``mosaic_pipeline``
+   on a 2 x 4 mesh of 5000 x 2500 blocks on the card, each cold, warm (the
+   card's peak memory, reset before each run, and the launches) and
+   profiled (each stage synced, with its peak memory), logging K (path 1's
+   beside the JAX package's 2,610 on this scene, a TPU run) and the host's
+   peak RSS; checks of each: every pixel owned and the labels dense
+   0..K-1, K polygons whose areas add up to the raster's within 1e-6
+   relative and equal each object's pixel count, K table rows with no NaN
+   in a spectral or GLCM column, the forest's rows adding up to 1 (path
+   1), the cold and warm spectral columns identical; path 1's moment
+   passes in blocks of a quarter, one and four times ``stats.SUM_BLOCK``
+   pixels and in one block, in turns, each timed with its peak memory, the
+   moments within rtol 1e-6 of one block's; ``glcm_sums`` against
+   its twin on band 0 (path 1) and ``glcm_spanner_hist`` against its twin
+   on band 0 (path 3), as in phases 3 and 10, timed with CUDA events
+   beside their bounds; sharded against single-device as in phase 12;
+   then (path 2) ``python -m obia_tpu_torch.bench 10000 --config 1`` with
+   ``OBIA_BENCH_RUNS=2``, its row checked as in phase 25.
 
 After the build a line gives the quickshift kernels' registers, spilled
 bytes and pixels a thread (P) as the library reports them. The last two
@@ -284,6 +303,8 @@ CROSS_SEGMENTS = 256    # the flagship's segments, for the 512^2 and
                         # 1024^2 checks of phases 23-24
 TWO_RANK_SIZE = 1024
 TWO_RANK_STEPS = 3
+NS_SIZE = 10000         # the north-star scene: 10000^2 x 8 bands, 100 MP
+NS_JAX_OBJECTS = 2610   # BASELINE.md: the JAX package's K there (a TPU run)
 HBM_BYTES_PER_MS = 3.35e9   # H100 SXM: 3.35 TB/s
 FP32_OPS_PER_MS = 67e9      # H100 SXM: 67 TFLOP/s float32 outside the MMAs
 SFU_OPS_PER_MS = 132 * 16 * 1.98e6  # 132 SMs x 16 exponentials a clock
@@ -788,6 +809,26 @@ def compare_kernel(args, what: str) -> float:
     if not same or calls != 2:
         raise AssertionError(f"GLCM kernel runs differ or miscount ({what})")
     return max(float(d_int), d_h)
+
+
+def sums_times(args, size: int, card: str):
+    """``glcm_sums`` on one band's ``args`` from a size^2 scene: held to
+    its twin (:func:`compare_kernel`), then the kernel (10 calls) and the
+    twin (3) timed with CUDA events, its bounds, and its kernels' split;
+    none of these launches counts. Returns (max abs error, ms, plain ms,
+    bound ms, bound ms with the band in place)."""
+    from obia_tpu_torch.ops import glcm_kernel
+    err = compare_kernel(args, f"{size}^2 scene band {args[2]}")
+    before = glcm_kernel.launches
+    ms = time_ms(lambda: glcm_kernel.glcm_sums(*args), 10)
+    plain_ms = time_ms(lambda: glcm_kernel.glcm_sums_reference(*args), 3)
+    bound, bound_l = sums_bound_ms([args]), sums_bound_ms([args], True)
+    log(f"GLCM sums one band at {size}^2, K={args[3].shape[0]}: kernel "
+        f"{ms:.3f} ms, plain torch {plain_ms:.3f} ms, bound {bound:.4f} ms "
+        f"(band in place: {bound_l:.4f} ms) ({card})")
+    kernel_split(lambda: glcm_kernel.glcm_sums(*args), "GLCM sums kernels")
+    glcm_kernel.launches = before
+    return err, ms, plain_ms, bound, bound_l
 
 
 def kernel_split(fn, what: str) -> dict:
@@ -2227,7 +2268,9 @@ def profiled(run, image, what: str):
         telemetry.enable(False)
     log(f"{what} (device synced at every stage): {out[2]:.3f} s")
     for name, r in telemetry.report().items():
-        log(f"  stage {name}: {1000 * r['total_s']:.1f} ms")
+        peak = (f", peak {r['peak_bytes'] / 2 ** 30:.2f} GiB"
+                if "peak_bytes" in r else "")
+        log(f"  stage {name}: {1000 * r['total_s']:.1f} ms{peak}")
     return out
 
 
@@ -2536,47 +2579,296 @@ def two_rank_check(card: str, device: str = "cuda:0",
     return results
 
 
-def bench_phase(card: str, want: dict) -> dict:
-    """Phase 25: ``python -m obia_tpu_torch.bench --config N`` in a new
-    process for configs 1, 4, 2 and 5 at their default sizes and config 3
-    at ``C3_CROSS_SIZE``^2 with ``OBIA_BENCH_RUNS=1``: each exits 0, its
-    last line is a row with ``value`` > 0 whose kernels launched, and its
-    ``n_objects`` equals ``want[config]`` (the same scene, size and device
-    in an earlier phase). Returns the rows by config."""
+def bench_row(card: str, config: int, size=None, env=None,
+              want=None, tag: str = "phase 25") -> dict:
+    """``python -m obia_tpu_torch.bench [size] --config N`` in a new
+    process, with ``env`` added to the environment: it exits 0, its last
+    line is a row with ``value`` > 0 on this card whose path's kernels
+    launched, and its ``n_objects`` equals ``want`` unless that is None.
+    Logs the row after ``tag``; returns it."""
     need = {1: ("glcm_sums",), 4: ("glcm_sums",),
             2: ("glcm_sums", "qs_density", "qs_parent"),
             5: ("glcm_sums", "glcm_hist"), 3: ()}
+    cmd = [sys.executable, "-m", "obia_tpu_torch.bench", "--config",
+           str(config), *([str(size)] if size else [])]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                          timeout=400, env={**os.environ, **(env or {})})
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"{' '.join(cmd[1:])} exited "
+                             f"{proc.returncode}: {proc.stderr[-3000:]}")
+    row = json.loads(proc.stdout.strip().splitlines()[-1])
+    log(f"{tag}, {' '.join(cmd[2:])}: {row['config']}, "
+        f"{row['n_objects']} objects, {row['value']:.4f} MP/s (best "
+        f"{row['elapsed_s']:.3f} s, first {row['first_run_s']:.3f} s, "
+        f"{row['megapixels']:.3f} MP), forest {row['forest']}, "
+        f"launches {row['launches']}; process {wall:.1f} s "
+        f"({row['device']})")
+    missed = [k for k in need[config] if row["launches"][k] < 1]
+    if not row["value"] > 0 or row["device"] != card or missed:
+        raise AssertionError(f"config {config}'s row: value "
+                             f"{row['value']}, device {row['device']},"
+                             f" no launches of {missed}")
+    if want is not None and row["n_objects"] != want:
+        raise AssertionError(f"config {config}: {row['n_objects']} "
+                             f"objects, the earlier phase {want}")
+    return row
+
+
+def bench_phase(card: str, want: dict) -> dict:
+    """Phase 25: :func:`bench_row` for configs 1, 4, 2 and 5 at their
+    default sizes and config 3 at ``C3_CROSS_SIZE``^2 with
+    ``OBIA_BENCH_RUNS=1``, configs 4, 2, 5 and 3 counting ``want[config]``
+    objects (the same scene, size and device in an earlier phase). Returns
+    the rows by config."""
     rows = {}
     for config, size, env in ((1, None, {}), (4, None, {}), (2, None, {}),
                               (5, None, {}),
                               (3, C3_CROSS_SIZE, {"OBIA_BENCH_RUNS": "1"})):
-        cmd = [sys.executable, "-m", "obia_tpu_torch.bench", "--config",
-               str(config), *([str(size)] if size else [])]
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
-                              timeout=400, env={**os.environ, **env})
-        wall = time.perf_counter() - t0
-        if proc.returncode != 0:
-            raise AssertionError(f"{' '.join(cmd[1:])} exited "
-                                 f"{proc.returncode}: {proc.stderr[-3000:]}")
-        row = json.loads(proc.stdout.strip().splitlines()[-1])
-        rows[config] = row
-        log(f"phase 25, {' '.join(cmd[2:])}: {row['config']}, "
-            f"{row['n_objects']} objects, {row['value']:.4f} MP/s (best "
-            f"{row['elapsed_s']:.3f} s, first {row['first_run_s']:.3f} s, "
-            f"{row['megapixels']:.3f} MP), forest {row['forest']}, "
-            f"launches {row['launches']}; process {wall:.1f} s "
-            f"({row['device']})")
-        missed = [k for k in need[config] if row["launches"][k] < 1]
-        if not row["value"] > 0 or row["device"] != card or missed:
-            raise AssertionError(f"config {config}'s row: value "
-                                 f"{row['value']}, device {row['device']},"
-                                 f" no launches of {missed}")
-        if config in want and row["n_objects"] != want[config]:
-            raise AssertionError(f"config {config}: {row['n_objects']} "
-                                 f"objects, the earlier phase "
-                                 f"{want[config]}")
+        rows[config] = bench_row(card, config, size, env, want.get(config))
     return rows
+
+
+# -- phase 26: the north-star scene ------------------------------------------
+
+def pixel_counts(geometry, transform) -> np.ndarray:
+    """Each polygon's area in pixels of the affine ``transform``."""
+    a, b, _, d, e = tuple(transform)[:5]
+    return np.array([g.area for g in geometry]) / abs(a * e - b * d)
+
+
+def check_north_star(labels, K: int, pixels: np.ndarray, table, proba,
+                     what: str) -> None:
+    """Phase 26's checks of one run, none of which needs a CPU run at the
+    same size: every pixel owned and the labels dense 0..K-1 (each id
+    present); K polygons whose areas (``pixels``, in pixels) add up to the
+    raster's within 1e-6 relative and, object by object, equal the labels'
+    bincount within 1e-6 relative; a table of K rows with no NaN in a
+    spectral or GLCM column (every object is non-empty); with ``proba``,
+    K probability rows adding up to 1."""
+    import torch
+    lab = labels.reshape(-1)
+    N = lab.numel()
+    unowned = int((lab < 0).sum())
+    if unowned:
+        raise AssertionError(f"{what}: {unowned} pixels belong to no object")
+    counts = torch.bincount(lab.long(), minlength=K).cpu().numpy()
+    if len(counts) != K or not (counts > 0).all():
+        raise AssertionError(f"{what}: labels are not dense 0..{K - 1} "
+                             f"(max {len(counts) - 1}, "
+                             f"{int((counts == 0).sum())} ids unused)")
+    pixels = np.asarray(pixels, np.float64)
+    if len(pixels) != K:
+        raise AssertionError(f"{what}: {len(pixels)} polygons for {K} "
+                             f"objects")
+    total = float(pixels.sum())
+    if not abs(total - N) <= 1e-6 * N:
+        raise AssertionError(f"{what}: the polygons' areas add up to "
+                             f"{total} px, the raster holds {N}")
+    off = np.flatnonzero(~(np.abs(pixels - counts) <= 1e-6 * counts))
+    if off.size:
+        raise AssertionError(f"{what}: {off.size} objects' polygon areas "
+                             f"differ from their pixel counts (object "
+                             f"{off[0]}: {pixels[off[0]]} vs "
+                             f"{counts[off[0]]})")
+    cols = [c for c in table.columns if c.startswith("b")]
+    short = [c for c in cols if len(table[c]) != K]
+    if len(table) != K or short or not cols:
+        raise AssertionError(f"{what}: the table has {len(table)} rows "
+                             f"(columns of another length: {short[:4]}), "
+                             f"expected {K}")
+    nan = [c for c in cols if np.isnan(np.asarray(table[c], float)).any()]
+    if nan:
+        raise AssertionError(f"{what}: NaN in {len(nan)} spectral or GLCM "
+                             f"columns of non-empty objects: {nan[:4]}")
+    if proba is not None and (proba.shape[0] != K or not np.allclose(
+            proba.sum(1), 1.0, atol=1e-5)):
+        raise AssertionError(f"{what}: {proba.shape[0]} probability rows "
+                             f"for {K} objects, or rows not adding up to 1")
+
+
+def north_star_runs(run, image, what: str):
+    """One path of phase 26: ``run`` cold, then warm with the card's peak
+    memory (reset before each run) and the kernels' launches, then a
+    profiled warm run (each stage synced, with its peak memory). Logs the
+    walls, K, both peaks and the host's peak RSS; returns (cold result,
+    warm result, warm peak bytes, the warm run's launches, the warm run's
+    probabilities or None)."""
+    import resource
+
+    import torch
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cold = run(image, "cuda")
+    cold_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    warm = run(image, "cuda")
+    launches = tbench.kernel_launches()
+    peak = torch.cuda.max_memory_allocated()
+    rss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2 ** 20
+    H, W = image.img_data.shape[:2]
+    log(f"{what}: {len(warm[0].table)} objects, first run {cold[2]:.3f} s, "
+        f"warm {warm[2]:.3f} s ({H * W / 1e6 / warm[2]:.3f} MP/s);"
+        f" peak device memory {cold_peak / 2 ** 30:.2f} GiB cold, "
+        f"{peak / 2 ** 30:.2f} GiB warm; host peak RSS {rss:.2f} GiB; "
+        f"launches {launches} ({card_line()})")
+    profiled(run, image, f"{what}, profiled warm run")
+    return cold[0], warm[0], peak, launches, warm[1]
+
+
+def moment_blocks(image_t, labels, K: int) -> dict:
+    """``objects.spectral``'s passes (float64 rows built and added
+    ``stats.SUM_BLOCK`` pixels at a time) at a quarter of the block they
+    run with, at it, at four times it and in one block of every pixel (the
+    arithmetic before the blocking), in turns, forward then back: each
+    size's best time (host clock, synced) and peak memory. Every size's
+    moments agree with the one block's within rtol 1e-6 with the same NaN
+    slots (the card's float64 atomics may order the sums otherwise).
+    Returns {block: (best s, peak bytes)}."""
+    import torch
+
+    from obia_tpu_torch.ops import stats
+    block = stats.SUM_BLOCK
+    sizes = (block // 4, block, 4 * block, labels.numel())
+    out, packed = {}, {}
+    try:
+        for size in sizes + sizes[::-1]:
+            stats.SUM_BLOCK = size
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            _, packed[size] = stats.spectral_moments_packed(image_t, labels,
+                                                            K)
+            sec = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated()
+            best, top = out.get(size, (sec, peak))
+            out[size] = (min(best, sec), max(top, peak))
+    finally:
+        stats.SUM_BLOCK = block
+    whole = packed[sizes[-1]]
+    log("  the moment passes by block size (" + "; ".join(
+        f"{'one block' if b == sizes[-1] else b}"
+        f"{' (as shipped)' if b == block else ''}: best "
+        f"{1000 * t:.1f} ms, peak {m / 2 ** 30:.2f} GiB, moments equal to "
+        f"one block's: {np.array_equal(packed[b], whole, equal_nan=True)}"
+        for b, (t, m) in out.items()) + ")")
+    for b in sizes:
+        if not (np.array_equal(np.isnan(packed[b]), np.isnan(whole))
+                and np.allclose(packed[b], whole, rtol=1e-6, atol=0,
+                                equal_nan=True)):
+            raise AssertionError(f"moments in blocks of {b} pixels differ "
+                                 f"from one block's")
+    return out
+
+
+def north_star_slice(image, card: str) -> dict:
+    """Phase 26, path 1: config 4 (``bench.run_config4``) on the north-star
+    scene, its checks, and ``glcm_sums`` against its twin on band 0, timed.
+    Returns the glcm_sums numbers for the kernels line."""
+    import torch
+
+    from obia_tpu_torch.ops import connectivity
+    what = f"phase 26, path 1: config 4 at {NS_SIZE}^2 x {BANDS}"
+    cold, s, peak, launches, proba = north_star_runs(run_slice, image, what)
+    K = len(s.table)
+    log(f"  K = {K}; the JAX package's {NS_JAX_OBJECTS} on this scene "
+        f"(BASELINE.md, a TPU run): {100 * (K / NS_JAX_OBJECTS - 1):+.2f}%;"
+        f" CCL sweeps {connectivity.iterations}")
+    labels = s.layer.labels_dev
+    check_north_star(labels, K, pixel_counts(s.table.geometry,
+                                             s.layer.transform),
+                     s.table, proba, what)
+    same = (np.array_equal(cold.layer.label_raster.values,
+                           s.layer.label_raster.values)
+            and np.array_equal(cold.layer.label_raster.lengths,
+                               s.layer.label_raster.lengths))
+    log(f"  cold and warm label rasters identical: {same}")
+    check_spectral_runs(cold.table, s.table, same, what)
+    if launches["glcm_sums"] < BANDS:
+        raise AssertionError(f"{what}: {launches['glcm_sums']} glcm_sums "
+                             f"launches, expected >= {BANDS}")
+    del cold
+    moment_blocks(image.device_tensor("cuda"), labels, K)
+    err, ms, plain_ms, bound, _ = sums_times(glcm_inputs(
+        image.device_tensor("cuda"), labels, K, 0), NS_SIZE, card)
+    del labels, s
+    torch.cuda.empty_cache()
+    return {"ms_north_star": ms, "plain_ms_north_star": plain_ms,
+            "bound_ms_north_star": bound, "max_abs_err_north_star": err,
+            "launches_north_star": launches["glcm_sums"],
+            "peak_gib_north_star": peak / 2 ** 30}
+
+
+def north_star_mosaic(image, card: str) -> dict:
+    """Phase 26, path 3: config 5's ``mosaic_pipeline`` on a 2 x 4 mesh of
+    5000 x 2500 blocks on the card, on the north-star scene; its checks,
+    sharded against single-device (phase 12's bars), and
+    ``glcm_spanner_hist`` against its twin on band 0, timed. Returns the
+    glcm_hist numbers for the kernels line and the run's glcm_sums
+    launches."""
+    import torch
+
+    from obia_tpu_torch.ops import glcm_kernel
+    from obia_tpu_torch.parallel import mesh as pmesh
+    what = (f"phase 26, path 3: the mosaic at {NS_SIZE}^2 x {BANDS} on a "
+            f"2 x 4 mesh")
+    cold, r5, peak, launches, _ = north_star_runs(run_config5, image, what)
+    K = len(r5.table)
+    lay = r5.layer
+    check_north_star(lay.labels_dev, K, pixel_counts(r5.table.geometry,
+                                                     lay.transform),
+                     r5.table, None, what)
+    same = np.array_equal(cold.label_raster, r5.label_raster)
+    log(f"  cold and warm label rasters identical: {same}")
+    check_spectral_runs(cold.table, r5.table, same, what)
+    if launches["glcm_sums"] < C5_SHARDS * BANDS \
+            or launches["glcm_hist"] != BANDS:
+        raise AssertionError(f"{what} missed a kernel: {launches} (glcm_hist"
+                             f" one a band)")
+    del cold
+    sharded_vs_single(r5, image)
+    img_sh = pmesh.shard_raster(lay.shards.mesh,
+                                image.device_tensor("cuda"))[0]
+    args = shard_calls(lay.shards.mesh, img_sh, lay.shards, K, 256, 0)[1]
+    err = compare_hist(args, f"{NS_SIZE}^2 mosaic band 0")
+    before = glcm_kernel.hist_launches
+    ms = time_ms(lambda: glcm_kernel.glcm_spanner_hist(*args, tables=False),
+                 10, queued=True)
+    plain_ms = time_ms(
+        lambda: glcm_kernel.glcm_spanner_hist_reference(*args), 3)
+    glcm_kernel.hist_launches = before
+    bound = hist_bound_ms(args)
+    log(f"GLCM spanner histogram, one band at {NS_SIZE}^2 ({args[3].ids.numel()}"
+        f" spanners, {args[3].pieces.shape[0]} pieces), as the main path "
+        f"calls it: kernel {ms:.4f} ms, plain torch {plain_ms:.3f} ms, "
+        f"bound {bound:.4f} ms ({card})")
+    del args, img_sh, r5
+    torch.cuda.empty_cache()
+    return {"ms_north_star": ms, "plain_ms_north_star": plain_ms,
+            "bound_ms_north_star": bound, "max_abs_err_north_star": err,
+            "launches_north_star": launches["glcm_hist"],
+            "sums_launches_north_star": launches["glcm_sums"],
+            "peak_gib_north_star": peak / 2 ** 30}
+
+
+def north_star_phase(card: str):
+    """Phase 26: the north-star scene (config 4's 8 bands at 10000^2,
+    100 MP) built once through paths 1 and 3, then path 2 (config 1 at
+    10000^2 RGB) as one bench process. Returns (glcm_sums numbers,
+    glcm_hist numbers, path 2's row)."""
+    t0 = time.perf_counter()
+    image = as_image(config4_scene(NS_SIZE))
+    log(f"phase 26: config4_scene({NS_SIZE}) built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    sums = north_star_slice(image, card)
+    hist = north_star_mosaic(image, card)
+    del image
+    row = bench_row(card, 1, NS_SIZE, {"OBIA_BENCH_RUNS": "2"},
+                    tag="phase 26, path 2")
+    return sums, hist, row
 
 
 def main() -> None:
@@ -2688,18 +2980,9 @@ def main() -> None:
     profiled(run_slice, image, "profiled run")
 
     labels = s.layer.labels_dev
-    args = glcm_inputs(image.device_tensor("cuda"), labels, n_obj, 0)
-    err = max(err, compare_kernel(args, f"{SIZE}^2 scene band 0"))
-    before = glcm_kernel.launches
-    ms = time_ms(lambda: glcm_kernel.glcm_sums(*args), 10)
-    plain_ms = time_ms(lambda: glcm_kernel.glcm_sums_reference(*args), 3)
-    glcm_kernel.launches = before
-    bound, bound_l = sums_bound_ms([args]), sums_bound_ms([args], True)
-    log(f"GLCM sums one band at {SIZE}^2, K={n_obj}: kernel {ms:.3f} ms, "
-        f"plain torch {plain_ms:.3f} ms, bound {bound:.4f} ms (band in "
-        f"place: {bound_l:.4f} ms) ({card})")
-    kernel_split(lambda: glcm_kernel.glcm_sums(*args), "GLCM sums kernels")
-    glcm_kernel.launches = before
+    e, ms, plain_ms, bound, bound_l = sums_times(glcm_inputs(
+        image.device_tensor("cuda"), labels, n_obj, 0), SIZE, card)
+    err = max(err, e)
 
     # -- 5. classify() on the config-4 table ------------------------------
     classify_phase(s.table)
@@ -2775,19 +3058,10 @@ def main() -> None:
     x8, noise8 = qs_inputs(config4_scene(QS_SIZE))
     qs_c8 = qs_time(x8, noise8, f"{QS_SIZE}^2 C=8 r=15", 20)
     qs_err = [max(qs_err[0], qs_c8[0]), max(qs_err[1], qs_c8[1])]
-    args2 = glcm_inputs(image2.device_tensor("cuda"), s2.layer.labels_dev,
-                        n2, 0)
-    err = max(err, compare_kernel(args2, f"config-2 {QS_SIZE}^2 band 0"))
-    before = glcm_kernel.launches
-    g_ms = time_ms(lambda: glcm_kernel.glcm_sums(*args2), 10)
-    g_plain = time_ms(lambda: glcm_kernel.glcm_sums_reference(*args2), 3)
-    glcm_kernel.launches = before
-    bound2, bound2_l = sums_bound_ms([args2]), sums_bound_ms([args2], True)
-    log(f"GLCM sums one band at {QS_SIZE}^2, K={n2}: kernel {g_ms:.3f} ms, "
-        f"plain torch {g_plain:.3f} ms, bound {bound2:.4f} ms (band in "
-        f"place: {bound2_l:.4f} ms) ({card})")
-    kernel_split(lambda: glcm_kernel.glcm_sums(*args2), "GLCM sums kernels")
-    glcm_kernel.launches = before
+    e, g_ms, g_plain, bound2, bound2_l = sums_times(glcm_inputs(
+        image2.device_tensor("cuda"), s2.layer.labels_dev, n2, 0), QS_SIZE,
+        card)
+    err = max(err, e)
 
     # -- 9. config-2 cross-check against the CPU plain path ---------------
     cross_check(run_config2, build_scene(h=QS_CROSS_SIZE, w=QS_CROSS_SIZE),
@@ -2912,6 +3186,10 @@ def main() -> None:
     # -- 25. the bench command, one configuration a process -----------------
     bench_rows = bench_phase(card, {4: n_obj, 2: n2, 5: n5, 3: n3})
 
+    # -- 26. the north-star scene: 10000^2 x 8 bands -------------------------
+    del image, s, image5, image2
+    ns_sums, ns_hist, ns_row = north_star_phase(card)
+
     log(card_line())
     qs_r, qs_md = 15, QS_KW["max_dist"]  # as qs_time measures
     qd_bound, qp_bound = qs_bound(x2, qs_r), qs_bound(x2, qs_r, qs_md)
@@ -2928,7 +3206,8 @@ def main() -> None:
          "bound_ms_layout_config2": bound2_l, "launches_config2": glcm2,
          "ms_config5": s5_ms, "plain_ms_config5": s5_plain,
          "bound_ms_config5": bound5, "bound_ms_layout_config5": bound5_l,
-         "launches_config5": sums5, "launches_rasterised": rasterised},
+         "launches_config5": sums5, "launches_rasterised": rasterised,
+         **ns_sums},
         {"name": "qs_density", "route": "cuda",
          "source": "obia_tpu_torch/csrc/quickshift.cu",
          "replaces": "obia_tpu/ops/quickshift_pallas.py:118",
@@ -2952,10 +3231,11 @@ def main() -> None:
          "function": "glcm_spanner_hist_kernel",
          "replaces": "obia_tpu/ops/glcm_pallas.py:258",
          "launches": hist5, "max_abs_err": float(hist_err),
-         "bound_by": "bytes", "library_ms": None, **h}]
-    for k in kernels:  # phase 25's launches, by config
+         "bound_by": "bytes", "library_ms": None, **h, **ns_hist}]
+    for k in kernels:  # phase 25's launches, by config, and phase 26's
         k["launches_bench"] = {str(c): row["launches"][k["name"]]
                                for c, row in bench_rows.items()}
+        k["launches_bench_north_star"] = ns_row["launches"][k["name"]]
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

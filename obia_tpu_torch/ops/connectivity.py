@@ -20,6 +20,8 @@ from typing import Tuple
 
 import torch
 
+iterations = 0  # propagation sweeps of the last ccl_roots call
+
 
 def _same_masks(labels: torch.Tensor):
     """(same-as-left, same-as-up) masks: the pixel is valid and carries the
@@ -43,7 +45,10 @@ def ccl_roots(labels: torch.Tensor) -> torch.Tensor:
     idx = torch.arange(N, dtype=torch.int64, device=dev)
     comp = torch.where(valid, idx, N)       # N = +inf, never a valid root
     vidx = idx[valid]
+    global iterations
+    iterations = 0
     while True:
+        iterations += 1
         c2 = comp.view(H, W)
         m = c2.clone()                      # min over self + same neighbours
         m[:, 1:] = torch.minimum(m[:, 1:], torch.where(

@@ -376,5 +376,75 @@ class LazyRLERaster:
         arr = self.materialise()
         return arr.astype(dtype) if dtype is not None else arr
 
+    def __len__(self):
+        return self.shape[0]
+
+    # the RLE is never written to: a copy shares it
+    def __deepcopy__(self, memo):
+        return self
+
+    def __copy__(self):
+        return self
+
+    # the ndarray surface that consumers of an attached label raster use
+    # (comparisons, arithmetic, reductions), each on the dense raster
+    @property
+    def dtype(self):
+        return self.values.dtype
+
+    @property
+    def ndim(self):
+        return len(self.shape)
+
+    @property
+    def size(self):
+        h, w = self.shape
+        return h * w
+
+    def astype(self, dtype):
+        return self.materialise().astype(dtype)
+
     def __getitem__(self, idx):
         return self.materialise()[idx]
+
+    def __eq__(self, other):
+        return self.materialise() == other
+
+    def __ne__(self, other):
+        return self.materialise() != other
+
+    __hash__ = None
+
+    def __ge__(self, other):
+        return self.materialise() >= other
+
+    def __gt__(self, other):
+        return self.materialise() > other
+
+    def __le__(self, other):
+        return self.materialise() <= other
+
+    def __lt__(self, other):
+        return self.materialise() < other
+
+    def __add__(self, other):
+        return self.materialise() + other
+
+    __radd__ = __add__
+
+    def __sub__(self, other):
+        return self.materialise() - other
+
+    def __rsub__(self, other):
+        return other - self.materialise()
+
+    def __mul__(self, other):
+        return self.materialise() * other
+
+    __rmul__ = __mul__
+
+    def min(self, *a, **kw):
+        return self.materialise().min(*a, **kw)
+
+    def max(self, *a, **kw):
+        return self.materialise().max(*a, **kw)

@@ -16,12 +16,16 @@ an object with zero variance gets NaN skewness and kurtosis.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
 SPECTRAL_PACK_ORDER = ("count", "mean", "variance", "min", "max",
                        "skewness", "kurtosis")
+# pixels whose float64 rows exist at once in a blocked sum: at 8 bands the
+# second moment pass holds ~1.6 GB of them, where all of a 100 MP scene's
+# would take ~35 GB
+SUM_BLOCK = 1 << 22
 
 
 def segment_sum(values: torch.Tensor, seg: torch.Tensor,
@@ -30,6 +34,22 @@ def segment_sum(values: torch.Tensor, seg: torch.Tensor,
     out = torch.zeros((num_segments, values.shape[1]), dtype=values.dtype,
                       device=values.device)
     return out.index_add_(0, seg, values)
+
+
+def blocked_segment_sum(rows: Callable[[slice], torch.Tensor],
+                        seg: torch.Tensor, num_segments: int,
+                        width: int) -> torch.Tensor:
+    """(num_segments, width) float64 sums by segment id ``seg`` (N,) of
+    the float64 rows ``rows(s)`` of each run ``s`` of :data:`SUM_BLOCK`
+    pixels, built and added one run at a time in pixel order into one
+    total. On the CPU ``index_add_`` adds in row order, so the sums equal
+    one ``segment_sum`` of all N rows bit for bit."""
+    out = torch.zeros((num_segments, width), dtype=torch.float64,
+                      device=seg.device)
+    for i in range(0, seg.numel(), SUM_BLOCK):
+        s = slice(i, i + SUM_BLOCK)
+        out.index_add_(0, seg[s], rows(s))
+    return out
 
 
 def _moments_finalize(cnt1, s1, p2, xmin, xmax, C: int):
@@ -95,21 +115,29 @@ def moment_pixels(image: torch.Tensor, labels: torch.Tensor, K: int,
 
 def moment_pass1(pix, K: int) -> torch.Tensor:
     """(K, 1+C) float64: [count | sum x per channel] (reference
-    ``_moment_pass1``), float32 terms added in float64."""
+    ``_moment_pass1``), float32 terms added in float64, a block of pixels
+    at a time (:func:`blocked_segment_sum`)."""
     x, _, seg, okf = pix
-    return segment_sum(torch.cat([okf[:, None], x * okf[:, None]],
-                                 dim=1).double(), seg, K + 1)[:K]
+
+    def rows(s):
+        w = okf[s, None]
+        return torch.cat([w, x[s] * w], dim=1).double()
+
+    return blocked_segment_sum(rows, seg, K + 1, 1 + x.shape[1])[:K]
 
 
 def moment_pass2(pix, mean: torch.Tensor, K: int) -> torch.Tensor:
     """(K, 3C) float64 centred 2nd/3rd/4th power sums about the objects'
     float32 means (reference ``_moment_pass2``), float32 terms added in
-    float64."""
+    float64, a block of pixels at a time (:func:`blocked_segment_sum`)."""
     x, lab, seg, okf = pix
-    d = (x - mean[lab.clamp(0, max(K - 1, 0))]) * okf[:, None]
-    d2 = d * d
-    return segment_sum(torch.cat([d2, d2 * d, d2 * d2], dim=1).double(), seg,
-                       K + 1)[:K]
+
+    def rows(s):
+        d = (x[s] - mean[lab[s].clamp(0, max(K - 1, 0))]) * okf[s, None]
+        d2 = d * d
+        return torch.cat([d2, d2 * d, d2 * d2], dim=1).double()
+
+    return blocked_segment_sum(rows, seg, K + 1, 3 * x.shape[1])[:K]
 
 
 def moment_minmax(pix, K: int):

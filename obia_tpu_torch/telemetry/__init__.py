@@ -4,8 +4,13 @@
 ``report()`` reads. With profiling on (``OBIA_PROFILE=1`` or ``enable()``),
 every stage synchronises the CUDA device when it starts and when it ends, so
 the asynchronous kernels a stage launched are charged to that stage and not
-to the next one; stages also print as they complete. With profiling off no
-stage synchronises, and the device runs ahead of the host as usual.
+to the next one; stages also print as they complete. A device stage also
+records the most device memory allocated while it ran (``peak_bytes`` in
+``report()``): it resets the card's peak counter as it starts and carries
+its own peak into the stage around it, so with profiling on
+``torch.cuda.max_memory_allocated()`` no longer covers a whole run. With
+profiling off no stage synchronises or reads the card's memory, and the
+device runs ahead of the host as usual.
 ``timed`` is the decorator form of ``stage``; ``trace(log_dir)`` records a
 ``torch.profiler`` trace of a block (CUDA activity included where a card is
 present) and writes it to ``log_dir`` as a Chrome trace.
@@ -23,6 +28,9 @@ import torch
 
 _records: Dict[str, List[float]] = defaultdict(list)
 _extra: Dict[str, Dict[str, float]] = defaultdict(dict)
+# per open device stage: [the card's peak counter when it began (the
+# enclosing stage's so far), the largest peak of the stages nested in it]
+_peaks: List[List[int]] = []
 _enabled = os.environ.get("OBIA_PROFILE", "0") not in ("0", "", "false")
 
 
@@ -40,10 +48,15 @@ def reset() -> None:
     _extra.clear()
 
 
+def _on_card() -> bool:
+    return (_enabled and torch.cuda.is_available()
+            and torch.cuda.is_initialized())
+
+
 def sync(x=None):
     """Wait for the CUDA device when profiling is on (a no-op otherwise, and
     on a process that never touched CUDA). Returns ``x``."""
-    if _enabled and torch.cuda.is_available() and torch.cuda.is_initialized():
+    if _on_card():
         torch.cuda.synchronize()
     return x
 
@@ -54,8 +67,12 @@ def stage(name: str, megapixels: Optional[float] = None,
     """Time a pipeline stage; optionally record MP throughput.
     ``host_only`` marks host work that runs beside the device (the
     background polygonisation): it never waits for the device."""
+    memory = not host_only and _on_card()
     if not host_only:
         sync()
+    if memory:
+        _peaks.append([torch.cuda.max_memory_allocated(), 0])
+        torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     try:
         yield
@@ -64,6 +81,13 @@ def stage(name: str, megapixels: Optional[float] = None,
             sync()
         dt = time.perf_counter() - t0
         _records[name].append(dt)
+        if memory:
+            before, nested = _peaks.pop()
+            peak = max(torch.cuda.max_memory_allocated(), nested)
+            _extra[name]["peak_bytes"] = max(
+                _extra[name].get("peak_bytes", 0), peak)
+            if _peaks:
+                _peaks[-1][1] = max(_peaks[-1][1], before, peak)
         if megapixels is not None and dt > 0:
             _extra[name]["total_mp"] = (_extra[name].get("total_mp", 0.0)
                                         + megapixels)

@@ -220,6 +220,53 @@ def test_telemetry_timed_is_enabled_and_trace(tmp_path):
         "<locals>.unnamed" in telemetry.report()
 
 
+def test_stage_peak_memory_nests(monkeypatch):
+    """With profiling on, each device stage records the most memory the
+    card held while it ran (``peak_bytes``), nested stages included, and
+    the host-only stage none; here the card's allocator is a stand-in."""
+    import torch
+
+    from obia_tpu_torch import telemetry
+    card = {"now": 0, "peak": 0}
+
+    def alloc(n):
+        card["now"] += n
+        card["peak"] = max(card["peak"], card["now"])
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "is_initialized", lambda: True)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated",
+                        lambda *a: card["peak"])
+    monkeypatch.setattr(torch.cuda, "reset_peak_memory_stats",
+                        lambda *a: card.update(peak=card["now"]))
+    telemetry.reset()
+    telemetry.enable(True)
+    try:
+        with telemetry.stage("outer"):
+            alloc(50)
+            alloc(-50)                  # outer's own peak, before a child
+            with telemetry.stage("inner"):
+                alloc(30)
+                alloc(-30)
+            with telemetry.stage("second"):
+                alloc(10)
+                alloc(-10)
+            with telemetry.stage("polygonize", host_only=True):
+                pass                    # host work: no device memory read
+    finally:
+        telemetry.enable(False)
+    rep = telemetry.report()
+    assert rep["inner"]["peak_bytes"] == 30
+    assert rep["second"]["peak_bytes"] == 10
+    assert rep["outer"]["peak_bytes"] == 50
+    assert "peak_bytes" not in rep["polygonize"]
+    telemetry.reset()
+    with telemetry.stage("off"):        # profiling off: no memory read
+        alloc(5)
+    assert "peak_bytes" not in telemetry.report()["off"]
+
+
 def test_exports_match_jax():
     import obia_tpu
     import obia_tpu.geometry

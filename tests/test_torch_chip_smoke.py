@@ -74,3 +74,112 @@ def test_train_inputs_take_a_width():
     assert np.array_equal(scene, want)
     gh, gw = _grid_shape(32, 48, 16)
     assert targets.shape == (gh * gw,)
+
+
+# -- phase 26's checks (the north-star scene), on the CPU at 256^2 ----------
+
+@pytest.fixture(scope="module")
+def north_star_runs():
+    """Config 4 and the 2 x 4 mosaic on config 4's 8-band scene at 256^2 on
+    the CPU, as phase 26 runs them at 10000^2 on the card (the mosaic with
+    64 segments and 32 GLCM levels, which keep its CPU twin small). One
+    torch thread: beside other test workers, a pool of threads makes these
+    runs of small ops tens of times slower."""
+    import types
+
+    import torch
+
+    from obia_tpu_torch.parallel.mesh import make_mesh
+    from obia_tpu_torch.parallel.mosaic import mosaic_pipeline
+    image = chip_smoke.as_image(chip_smoke.config4_scene(256))
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        s, proba, _ = chip_smoke.run_slice(image, "cpu")
+        objects = mosaic_pipeline(image, n_segments=64,
+                                  mesh=make_mesh(8, ["cpu"]),
+                                  objects_kwargs={"glcm_levels": 32})
+    finally:
+        torch.set_num_threads(threads)
+    return s, proba, types.SimpleNamespace(table=objects,
+                                           layer=objects.layer)
+
+
+def _inputs(run, proba=None):
+    layer = run.layer
+    return dict(labels=layer.labels_dev, K=len(run.table),
+                pixels=chip_smoke.pixel_counts(run.table.geometry,
+                                               layer.transform),
+                table=run.table, proba=proba, what="256^2")
+
+
+def test_north_star_checks_pass_on_both_paths(north_star_runs):
+    s, proba, r5 = north_star_runs
+    chip_smoke.check_north_star(**_inputs(s, proba))
+    chip_smoke.check_north_star(**_inputs(r5))
+    assert proba is not None and len(s.table) > 100 and len(r5.table) > 50
+    assert r5.layer.shards is not None
+
+
+def _hole(kw):
+    lab = kw["labels"].clone()
+    lab[7, 9] = -1
+    return dict(kw, labels=lab)
+
+
+def _missing_area(kw):
+    pixels = kw["pixels"].copy()
+    pixels[3] = 0.0  # one polygon lost
+    return dict(kw, pixels=pixels)
+
+
+def _count_off_by_one(kw):
+    pixels = kw["pixels"].copy()
+    pixels[3] += 1  # the total still adds up
+    pixels[4] -= 1
+    return dict(kw, pixels=pixels)
+
+
+def _id_unused(kw):
+    lab = kw["labels"].clone()
+    lab[lab == 5] = 4  # id 5 gone: not dense
+    return dict(kw, labels=lab)
+
+
+def _short_table(kw):
+    K = kw["K"]
+    return dict(kw, table=kw["table"].take(np.arange(K - 1)))
+
+
+def _nan_column(kw):
+    col = np.asarray(kw["table"]["b2_contrast"], float).copy()
+    col[1] = np.nan
+    return dict(kw, table=kw["table"].with_columns(b2_contrast=col))
+
+
+def _proba_rows(kw):
+    proba = kw["proba"].copy()
+    proba[0] *= 0.5
+    return dict(kw, proba=proba)
+
+
+@pytest.mark.parametrize("tamper,match", [
+    (_hole, "belong to no object"), (_missing_area, "add up to"),
+    (_count_off_by_one, "pixel counts"), (_id_unused, "not dense"),
+    (_short_table, "rows"), (_nan_column, "NaN"),
+    (_proba_rows, "probability rows")])
+def test_north_star_checks_refuse(north_star_runs, tamper, match):
+    s, proba, _ = north_star_runs
+    with pytest.raises(AssertionError, match=match):
+        chip_smoke.check_north_star(**tamper(_inputs(s, proba)))
+
+
+def test_pixel_counts_use_the_pixel_area(north_star_runs):
+    """A 2 m grid: each polygon's area is 4 m^2 a pixel."""
+    from obia_tpu_torch.geometry import Affine
+    s, _, _ = north_star_runs
+    geoms = s.table.geometry
+    one = chip_smoke.pixel_counts(geoms, s.layer.transform)
+    assert one.sum() == pytest.approx(256 * 256, rel=1e-12)
+    half = chip_smoke.pixel_counts(geoms, Affine(2.0, 0, 0, 0, -2.0, 0))
+    np.testing.assert_allclose(half, one / 4)

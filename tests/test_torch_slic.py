@@ -152,6 +152,16 @@ def test_ccl_dense_labels_bitwise(case):
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
+def test_ccl_counts_its_sweeps():
+    """``connectivity.iterations``: the propagation sweeps of the last
+    ``ccl_roots`` call, the last one the sweep that changed nothing."""
+    distinct = torch.arange(64, dtype=torch.int32).view(8, 8)
+    tconn.ccl_dense_labels(distinct)
+    assert tconn.iterations == 1
+    _, k = tconn.ccl_dense_labels(torch.zeros((1, 64), dtype=torch.int32))
+    assert k == 1 and tconn.iterations > 1
+
+
 @pytest.mark.parametrize("case", ["slic_a", "slic_b", "random_with_holes"])
 @pytest.mark.parametrize("min_size,max_size", [(20, 150), (40, 80),
                                                (3, 10 ** 6)])

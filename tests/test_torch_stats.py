@@ -22,6 +22,7 @@ import jax.numpy as jnp
 
 from obia_tpu.ops import stats as jstats
 from obia_tpu.ops.stats import spectral_moments_packed as jax_moments
+from obia_tpu_torch.ops import stats as tstats
 from obia_tpu_torch.ops.stats import (SPECTRAL_PACK_ORDER, moment_pass1,
                                       moment_pass2, moment_pixels,
                                       segment_spectral_moments, segment_sum,
@@ -188,3 +189,32 @@ def test_sharded_moments_match_single_device_every_column(seed):
     for name in SPECTRAL_PACK_ORDER:
         torch.testing.assert_close(got[name], want[name], rtol=2e-4,
                                    atol=1e-5, equal_nan=True, msg=name)
+
+
+@pytest.mark.parametrize("h,w,c,block", [(40, 56, 3, 997), (96, 128, 8, 5000),
+                                         (40, 56, 3, 61)])
+def test_blocked_moment_passes_equal_one_pass(monkeypatch, h, w, c, block):
+    """The moment passes sum a block of pixels at a time into one float64
+    total; at block sizes that split the raster unevenly (into 3 to 37
+    blocks) the sums equal one index_add_ over every pixel's rows, as the
+    passes made them before, bit for bit, and so do the moments."""
+    img, lab, k = scene(9, h=h, w=w, c=c)
+    image, labels = torch.as_tensor(img), torch.as_tensor(lab)
+    pix = moment_pixels(image, labels, k)
+    x, lab_t, seg, okf = pix
+    want1 = segment_sum(torch.cat([okf[:, None], x * okf[:, None]],
+                                  dim=1).double(), seg, k + 1)[:k]
+    mean = want1[:, 1:].float() / torch.clamp(want1[:, :1].float(), min=1.0)
+    d = (x - mean[lab_t.clamp(0, k - 1)]) * okf[:, None]
+    d2 = d * d
+    want2 = segment_sum(torch.cat([d2, d2 * d, d2 * d2], dim=1).double(),
+                        seg, k + 1)[:k]
+    whole = segment_spectral_moments(image, labels, k)
+    monkeypatch.setattr(tstats, "SUM_BLOCK", block)
+    assert x.shape[0] % block
+    assert torch.equal(moment_pass1(pix, k), want1)
+    assert torch.equal(moment_pass2(pix, mean, k), want2)
+    got = segment_spectral_moments(image, labels, k)
+    for name in SPECTRAL_PACK_ORDER:
+        torch.testing.assert_close(got[name], whole[name], rtol=0, atol=0,
+                                   equal_nan=True, msg=name)
