@@ -224,7 +224,26 @@ any failure raises and exits non-zero:
    on band 0 (path 3), as in phases 3 and 10, timed with CUDA events
    beside their bounds; sharded against single-device as in phase 12;
    then (path 2) ``python -m obia_tpu_torch.bench 10000 --config 1`` with
-   ``OBIA_BENCH_RUNS=2``, its row checked as in phase 25.
+   ``OBIA_BENCH_RUNS=2``, its row checked as in phase 25;
+27. the reference's import paths over the port: (a) config 1's scene
+   (``build_scene``, 4096^2 RGB, phase 25's config-1 size) written as a
+   GeoTIFF, then README.md's headline through ``obia_torch``
+   (``open_geotiff``, ``segment(method="slic", n_segments=3000,
+   compactness=10)``, ``classify(method="mlp")`` on the table with the
+   bench's seeded training rows, ``write_geotiff``, read back), cold and
+   warm, the launches counted around the warm run; checks: the
+   ``obia_torch`` objects are the port's, K equals phase 25's config-1
+   row, the labels equal a direct ``obia_tpu_torch`` call's, no NaN in a
+   spectral or GLCM column, the GeoTIFF equals the label-raster render,
+   ``glcm_sums`` launched; (b) ``glcm_table`` and ``spectral_stats_table``
+   on (a)'s labels bitwise the packed paths, and on a 1024^2 corner within
+   rtol 2e-4 / 1e-4, atol 1e-5 of the CPU's; ``polygonize_labels``' areas
+   adding up to H * W; the join pairs of ``contains`` (polygons, 300
+   seeded points) equal to ``within`` (points, polygons) swapped, every
+   point in a polygon; (c) ``python -m obia_tpu_torch.bench 1024 --config
+   detection`` in a new process: the tool's keys with ``device`` and
+   ``launches``, a finite loss, its walls logged. The whole script's time
+   is logged.
 
 After the build a line gives the quickshift kernels' registers, spilled
 bytes and pixels a thread (P) as the library reports them. The last two
@@ -248,7 +267,7 @@ the 32-byte sectors that hold it in the interleaved (H, W, C) image, the
 least a kernel that reads the band in place can take. No one PyTorch
 call computes any of the four, so ``library_ms`` is null;
 ``launches_bench`` gives each kernel's launches in phase 25's rows, by
-config. The script needs no network, JAX, pandas or sklearn (configs 4
+config, and ``launches_phase27`` in phase 27 (a)'s warm run. The script needs no network, JAX, pandas or sklearn (configs 4
 and 1 predict with the bench's seeded stand-in forest, chosen and not
 probed for; the MLP and ``classify(method="mlp")`` need neither), and
 imports nothing of the JAX package.
@@ -367,6 +386,18 @@ def forest_walk(rf, X: np.ndarray):
     return proba / len(rf.estimators_), base / len(rf.estimators_)
 
 
+def classified_render(lab: np.ndarray, table):
+    """What ``write_geotiff`` of a classified ``table`` must give over the
+    0-based label raster ``lab``: each object's class code (1, 2, ... in
+    first-appearance order of ``predicted_class``) on its pixels, 0 where
+    no object is. Returns (raster, number of classes)."""
+    pred = np.asarray(table["predicted_class"])
+    code = {c: i + 1 for i, c in enumerate(dict.fromkeys(pred.tolist()))}
+    lut = np.zeros(int(lab.max()) + 2, np.int32)
+    lut[np.asarray(table["segment_id"])] = [code[c] for c in pred]
+    return np.where(lab >= 0, lut[lab + 1], 0), len(code)
+
+
 def classify_phase(table, device: str = "cuda") -> None:
     """``classify`` on a config-4 table (the MLP route, Kernel SHAP evaluated
     on ``device``), once cold and once warm, then its checks."""
@@ -458,10 +489,7 @@ def classify_phase(table, device: str = "cuda") -> None:
 
     # the classified GeoTIFF against the label-raster render
     lab = np.asarray(table.layer.label_raster)
-    code = {c: i + 1 for i, c in enumerate(dict.fromkeys(pred.tolist()))}
-    lut = np.zeros(int(lab.max()) + 2, np.int32)
-    lut[np.asarray(res.table["segment_id"])] = [code[c] for c in pred]
-    want = np.where(lab >= 0, lut[lab + 1], 0)
+    want, n_classes = classified_render(lab, res.table)
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "classified.tif")
         t0 = time.perf_counter()
@@ -471,7 +499,7 @@ def classify_phase(table, device: str = "cuda") -> None:
     if not np.array_equal(got, want):
         raise AssertionError("classified GeoTIFF != the label-raster render")
     log(f"  GeoTIFF {got.shape[0]}x{got.shape[1]} written and read back in "
-        f"{tif_s:.2f} s, equal to the render ({len(code)} classes)")
+        f"{tif_s:.2f} s, equal to the render ({n_classes} classes)")
 
     # TreeSHAP (the g++ build of the native library) on the stand-in forest
     X, _, _ = training_table(table)
@@ -2871,6 +2899,264 @@ def north_star_phase(card: str):
     return sums, hist, row
 
 
+# -- phase 27: the reference import paths, the new functions, detection ------
+
+# the keys of tools/bench_detection.py's row
+TOOL_DETECTION_KEYS = ("tile", "batch", "backbone", "train_step_s",
+                       "train_step_first_s", "train_images_per_s", "loss",
+                       "predict_s", "predict_first_s", "predict_mp_s",
+                       "n_detections")
+JOIN_POINTS = 300       # seeded points joined to (a)'s polygons
+SURFACE_CROSS = 1024    # the corner of (a)'s raster that the CPU reruns
+
+
+def alias_flow(path: str, out: str, device: str,
+               n_segments: int = N_SEGMENTS):
+    """README.md's headline flow through the ``obia_torch`` import paths,
+    pandas- and sklearn-free: ``open_geotiff(path)``, SLIC
+    (``n_segments``, compactness 10) with its features, ``classify`` of the
+    table by the MLP route (the bench's seeded training rows and
+    median-split target), ``write_geotiff(out)`` and the GeoTIFF read back.
+    Returns (segments, classify result, the raster read back, seconds); the
+    clock stops after the polygons are joined and the card synchronised."""
+    import torch
+
+    from obia_torch.classification.classify import classify
+    from obia_torch.handlers.geotif import open_geotiff
+    from obia_torch.segmentation.segment import segment
+    t0 = time.perf_counter()
+    s = segment(open_geotiff(path), method="slic", n_segments=n_segments,
+                compactness=10, device=device)
+    _, y, idx = training_table(s.table)
+    res = classify(s.table, s.table.take(idx).with_columns(
+        feature_class=y[idx]), method="mlp", hidden_layer_sizes=(64,),
+        max_iter=60, random_state=0, device=device)
+    res.write_geotiff(out)
+    back = open_geotiff(out).img_data
+    s.table.geometry
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+    return s, res, back, time.perf_counter() - t0
+
+
+def check_alias_flow(s, res, back, direct, want_k, what: str) -> None:
+    """Phase 27 (a)'s checks: K objects (``want_k``, unless None), the
+    labels of ``direct`` (the same call through ``obia_tpu_torch``), no
+    NaN in the table's spectral and GLCM columns (the point-cloud columns
+    are NaN without a cloud), and the classified GeoTIFF ``back`` equal to
+    the label-raster render."""
+    K = len(s.table)
+    rle, d = s.layer.label_raster, direct.layer.label_raster
+    if want_k is not None and K != want_k:
+        raise AssertionError(f"{what}: {K} objects, the bench's row "
+                             f"{want_k}")
+    if not (np.array_equal(rle.values, d.values)
+            and np.array_equal(rle.lengths, d.lengths)):
+        raise AssertionError(f"{what}: labels differ from a direct "
+                             "obia_tpu_torch call's")
+    cols = [c for c in s.table.columns if c[:1] == "b" and c[1:2].isdigit()]
+    nan = [c for c in cols
+           if not np.isfinite(np.asarray(s.table[c], np.float64)).all()]
+    if nan or not cols:
+        raise AssertionError(f"{what}: NaN in columns {nan}")
+    want, n_classes = classified_render(np.asarray(rle), res.table)
+    if back.shape[:2] != want.shape or not np.array_equal(back[:, :, 0],
+                                                          want):
+        raise AssertionError(f"{what}: the classified GeoTIFF "
+                             f"{back.shape} differs from the render")
+    log(f"  {what}: {K} objects, labels equal to obia_tpu_torch's, no NaN "
+        f"in {len(cols)} spectral and GLCM columns, GeoTIFF {want.shape} "
+        f"equal to the render ({n_classes} classes)")
+
+
+def _same_tables(got: dict, want: dict, rtol: float, atol: float,
+                 what: str) -> float:
+    """Raise unless two {name: array} tables have the same names, the same
+    NaN slots and values within ``rtol``/``atol`` (0/0: bitwise); returns
+    the largest absolute difference."""
+    if list(got) != list(want):
+        raise AssertionError(f"{what}: names {list(got)} != {list(want)}")
+    worst = 0.0
+    for k in want:
+        g, w = np.asarray(got[k]), np.asarray(want[k])
+        if g.shape != w.shape or not np.array_equal(np.isnan(g),
+                                                    np.isnan(w)):
+            raise AssertionError(f"{what}: {k} shapes or NaN slots differ")
+        ok = ~np.isnan(w)
+        if not np.allclose(g[ok], w[ok], rtol=rtol, atol=atol):
+            raise AssertionError(f"{what}: {k} beyond rtol {rtol}, atol "
+                                 f"{atol}")
+        if ok.any():
+            worst = max(worst, float(np.abs(g[ok] - w[ok]).max()))
+    return worst
+
+
+def surface_check(image_t, labels, K: int, cross: int, what: str) -> None:
+    """Phase 27 (b) on (a)'s image and labels where they lie:
+    ``glcm_table`` and ``spectral_stats_table`` bitwise the packed paths'
+    columns, and on the ``cross``^2 corner within test_torch_glcm.py's and
+    test_torch_stats.py's bars (rtol 2e-4 / 1e-4, atol 1e-5) of the same
+    corner on the CPU; ``polygonize_labels``' areas adding up to H * W."""
+    from obia_tpu_torch.geometry.polygonize import polygonize_labels
+    from obia_tpu_torch.ops import glcm as tglcm
+    from obia_tpu_torch.ops import stats as tstats
+    t0 = time.perf_counter()
+    names, packed = tglcm.segment_glcm_props_packed(image_t, labels, K)
+    _same_tables(tglcm.glcm_table(image_t, labels, K),
+                 dict(zip(names, packed)), 0, 0, f"{what} glcm_table")
+    names, packed = tstats.spectral_moments_packed(image_t, labels, K)
+    _same_tables(tstats.spectral_stats_table(image_t, labels, K),
+                 dict(zip(names, packed)), 0, 0,
+                 f"{what} spectral_stats_table")
+    img_c = image_t[:cross, :cross].contiguous()
+    lab_c = labels[:cross, :cross].contiguous()
+    dg = _same_tables(tglcm.glcm_table(img_c, lab_c, K),
+                      tglcm.glcm_table(img_c.cpu(), lab_c.cpu(), K),
+                      2e-4, 1e-5, f"{what} glcm_table vs the CPU")
+    ds = _same_tables(tstats.spectral_stats_table(img_c, lab_c, K),
+                      tstats.spectral_stats_table(img_c.cpu(), lab_c.cpu(),
+                                                  K),
+                      1e-4, 1e-5, f"{what} spectral_stats_table vs the CPU")
+    polys = polygonize_labels(labels)
+    H, W = labels.shape
+    area = sum(p.area for plist in polys.values() for p in plist)
+    if len(polys) != K or area != H * W:
+        raise AssertionError(f"{what}: polygonize_labels gave {len(polys)} "
+                             f"labels and {area} px of {K} and {H * W}")
+    log(f"  {what}: glcm_table and spectral_stats_table bitwise the packed "
+        f"paths; on the {cross}^2 corner, against the CPU, max|diff| "
+        f"{dg:.3g} (GLCM) and {ds:.3g} (moments); polygonize_labels: {K} "
+        f"labels, areas add up to {H} x {W}; "
+        f"{time.perf_counter() - t0:.2f} s")
+
+
+def join_check(geometry, transform, shape, n_points: int, seed: int,
+               what: str) -> None:
+    """Phase 27 (b)'s join: ``n_points`` seeded points inside the raster;
+    ``contains`` of the polygons against them (the points fast path) gives
+    the pairs of ``within`` of the points against the polygons (the general
+    path) with the sides swapped, and every point lies in a polygon."""
+    from obia_tpu_torch.geometry.geom import Point
+    from obia_tpu_torch.vector.features import join_pairs
+    rng = np.random.default_rng(seed)
+    H, W = shape
+    col, row = rng.uniform(0, W, n_points), rng.uniform(0, H, n_points)
+    a, b, c, d, e, f = tuple(transform)[:6]
+    pts = [Point(a * x + b * y + c, d * x + e * y + f)
+           for x, y in zip(col, row)]
+    t0 = time.perf_counter()
+    contains = join_pairs(geometry, pts, "contains")
+    t1 = time.perf_counter()
+    within = join_pairs(pts, geometry, "within")
+    t2 = time.perf_counter()
+    if sorted(contains) != sorted((p, q) for q, p in within):
+        raise AssertionError(f"{what}: contains(L, R) != within(R, L)")
+    hits = np.bincount([q for _, q in contains], minlength=n_points)
+    if (hits < 1).any():
+        raise AssertionError(f"{what}: {int((hits < 1).sum())} points in "
+                             "no polygon")
+    log(f"  {what}: sjoin pairs, contains(polygons, points) == "
+        f"within(points, polygons): {len(contains)} pairs of {len(geometry)}"
+        f" polygons and {n_points} points; contains {1000 * (t1 - t0):.0f} "
+        f"ms, within {1000 * (t2 - t1):.0f} ms")
+
+
+def alias_phase(card: str, want_k, size: int = tbench.DEFAULT_SIZE,
+                device: str = "cuda", n_segments: int = N_SEGMENTS,
+                cross: int = SURFACE_CROSS, n_points: int = JOIN_POINTS,
+                seed: int = 0) -> dict:
+    """Phase 27 (a) and (b): config 1's scene at size^2 (phase 25's config-1
+    row's scene and size) written as a GeoTIFF, the headline flow through
+    ``obia_torch`` cold and warm with the launches counted around the warm
+    run, its checks, then the new functions on its labels. Returns the
+    warm run's launches."""
+    import tempfile
+
+    import torch
+
+    import obia_tpu_torch.classification.classify as real_c
+    import obia_tpu_torch.handlers.geotif as real_h
+    import obia_tpu_torch.segmentation.segment as real_s
+    from obia_torch.classification import classify as alias_c
+    from obia_torch.handlers import geotif as alias_h
+    from obia_torch.segmentation import segment as alias_s
+    if not (alias_s.segment is real_s.segment
+            and alias_c.classify is real_c.classify
+            and alias_h.open_geotiff is real_h.open_geotiff):
+        raise AssertionError("obia_torch re-exports copies, not the port's "
+                             "objects")
+    what = f"phase 27 (a), the headline through obia_torch at {size}^2 RGB"
+    scene = build_scene(h=size, w=size)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = write_scene(os.path.join(tmp, "scene.tif"), scene)
+        walls = {}
+        for run in ("cold", "warm"):
+            reset_launches()
+            s, res, back, walls[run] = alias_flow(
+                path, os.path.join(tmp, f"classified_{run}.tif"), device,
+                n_segments)
+            launches = tbench.kernel_launches()
+    image = as_image(scene)
+    direct = real_s.segment(image, method="slic", n_segments=n_segments,
+                            compactness=10, device=device)
+    log(f"{what}: cold {walls['cold']:.3f} s, warm {walls['warm']:.3f} s "
+        f"(open, segment, classify mlp, write and read the GeoTIFF); "
+        f"launches {launches} ({card})")
+    check_alias_flow(s, res, back, direct, want_k, what)
+    if torch.device(device).type == "cuda" and launches["glcm_sums"] < 3:
+        raise AssertionError(f"{what}: glcm_sums launched "
+                             f"{launches['glcm_sums']} times")
+    labels = s.layer.labels_dev
+    surface_check(image.device_tensor(device), labels, len(s.table),
+                  min(cross, size), "phase 27 (b), the new functions")
+    join_check(s.table.geometry, s.layer.transform, tuple(labels.shape),
+               n_points, seed, "phase 27 (b)")
+    return launches
+
+
+def check_detection_row(row: dict, card: str) -> dict:
+    """Phase 27 (c)'s row: tools/bench_detection.py's keys with ``device``
+    (this card) and ``launches``, a finite loss and positive times; returns
+    the row's fields."""
+    got = row["detection_bench"]
+    want = set(TOOL_DETECTION_KEYS) | {"device", "launches"}
+    if set(got) != want:
+        raise AssertionError(f"detection row keys {sorted(got)} != "
+                             f"{sorted(want)}")
+    if got["device"] != card or not math.isfinite(got["loss"]):
+        raise AssertionError(f"detection row: device {got['device']}, "
+                             f"loss {got['loss']}")
+    if not (got["train_step_s"] > 0 and got["predict_s"] > 0):
+        raise AssertionError(f"detection row times: {got}")
+    return got
+
+
+def detection_bench_phase(card: str, size: int = tbench.DETECTION_SIZE
+                          ) -> dict:
+    """Phase 27 (c): ``python -m obia_tpu_torch.bench size --config
+    detection`` (batch 2) in a new process; its row checked and logged."""
+    cmd = [sys.executable, "-m", "obia_tpu_torch.bench", str(size),
+           "--config", "detection"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                          timeout=400)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"{' '.join(cmd[1:])} exited "
+                             f"{proc.returncode}: {proc.stderr[-3000:]}")
+    got = check_detection_row(
+        json.loads(proc.stdout.strip().splitlines()[-1]), card)
+    log(f"phase 27 (c), {' '.join(cmd[2:])}: tile {got['tile']}, batch "
+        f"{got['batch']}, train step best {got['train_step_s']:.4f} s "
+        f"(first {got['train_step_first_s']:.3f} s, "
+        f"{got['train_images_per_s']:.2f} images/s), loss {got['loss']:.4f}"
+        f"; predict best {got['predict_s']:.4f} s (first "
+        f"{got['predict_first_s']:.3f} s, {got['predict_mp_s']:.3f} MP/s), "
+        f"{got['n_detections']} detections; process {wall:.1f} s "
+        f"({got['device']})")
+    return got
+
+
 def main() -> None:
     import argparse
 
@@ -2894,6 +3180,7 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda."
                          "is_available() is False)")
+    t_start = time.perf_counter()
     card = card_line()
     log(f"card: {card}")
     sys.path.insert(0, ROOT)
@@ -3190,6 +3477,13 @@ def main() -> None:
     del image, s, image5, image2
     ns_sums, ns_hist, ns_row = north_star_phase(card)
 
+    # -- 27. the reference import paths, the new functions, detection --------
+    t27 = time.perf_counter()
+    alias_launches = alias_phase(card, bench_rows[1]["n_objects"])
+    detection_bench_phase(card)
+    log(f"phase 27: {time.perf_counter() - t27:.1f} s")
+
+    log(f"all phases: {time.perf_counter() - t_start:.1f} s")
     log(card_line())
     qs_r, qs_md = 15, QS_KW["max_dist"]  # as qs_time measures
     qd_bound, qp_bound = qs_bound(x2, qs_r), qs_bound(x2, qs_r, qs_md)
@@ -3236,6 +3530,7 @@ def main() -> None:
         k["launches_bench"] = {str(c): row["launches"][k["name"]]
                                for c, row in bench_rows.items()}
         k["launches_bench_north_star"] = ns_row["launches"][k["name"]]
+        k["launches_phase27"] = alias_launches[k["name"]]
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,7 +2,8 @@
 megapixels a second, through the port's public entry points (the port's
 counterpart of the repository's ``bench.py``, which times the JAX package).
 
-    python -m obia_tpu_torch.bench [size] [--config N] [--forest stand-in|fit]
+    python -m obia_tpu_torch.bench [size] [--config N|detection]
+                                   [--forest stand-in|fit] [--batch B]
                                    [--device DEVICE]
 
 Each configuration builds the same synthetic scene as ``bench.py``, runs once
@@ -26,7 +27,15 @@ hand-written kernel's launches in the last run; none on the CPU).
   tile) on the scene written as a GeoTIFF (4096; the sweep runs it once at
   ``min(size, 2048)``); a tile that the manifest does not mark done raises;
 - config 5: ``mosaic_pipeline`` over a logical 2 x 4 mesh of shards on the
-  one device (4096).
+  one device (4096);
+- ``detection``: the repository's ``tools/bench_detection.py`` through the
+  port (1024): the full-width RetinaNet on 8-band tiles, the train step
+  at batch ``--batch`` (default 2) and whole-raster ``infer_image_array``,
+  on the tool's seeded tiles, boxes and scene. Its row is the tool's
+  ``{"detection_bench": {...}}``, unrounded, with ``device`` and
+  ``launches`` added: the first train step, then the best of 5; the first
+  predict, then the best of 3; each timed window ends with the card
+  synchronised. It is not part of the sweep.
 
 With no ``--config`` the sweep runs configs 1 and 4, then configs 3 and 5
 once each, and prints one row: config 4's, with every row under ``rows``.
@@ -66,6 +75,11 @@ PRIMARY = "4-multispectral-glcm-rf"
 DEFAULT_SIZE = 4096
 CONFIG2_SIZE = 1024     # quickshift's cost grows with the window
 CONFIG3_SWEEP_SIZE = 2048
+DETECTION = "detection"
+DETECTION_SIZE = 1024
+DETECTION_BANDS = 8
+DETECTION_BOXES = 12    # boxes a tile
+DETECTION_BATCH = 2
 
 
 class SweepFailed(RuntimeError):
@@ -415,6 +429,86 @@ def bench_config5(size: int, device=None, emit: bool = True,
                  {"mesh": [2, MESH_SHARDS // 2]}, emit)
 
 
+def detection_inputs(size: int, batch: int, seed: int = 0):
+    """The tool's draws from ``np.random.default_rng(seed)``, in its order:
+    ``batch`` (C, size, size) float32 tiles, then each tile's 12 boxes
+    (x0, y0 in [0, size - 80), sides in [20, 70)) with label 1, then the
+    (size, size, C) float32 scene that the predict runs on. Returns
+    (tiles, targets, scene)."""
+    rng = np.random.default_rng(seed)
+    C, n = DETECTION_BANDS, DETECTION_BOXES
+    images = [rng.random((C, size, size), np.float32) for _ in range(batch)]
+    targets = []
+    for _ in range(batch):
+        x0 = rng.uniform(0, size - 80, n)
+        y0 = rng.uniform(0, size - 80, n)
+        w = rng.uniform(20, 70, n)
+        h = rng.uniform(20, 70, n)
+        targets.append({
+            "boxes": np.stack([x0, y0, x0 + w, y0 + h], -1).astype(np.float32),
+            "labels": np.ones(n, np.int32)})
+    scene = rng.random((size, size, C), np.float32)
+    return images, targets, scene
+
+
+def bench_detection(size: int = DETECTION_SIZE, device=None,
+                    batch: int = DETECTION_BATCH, emit: bool = True,
+                    warm_runs=None) -> dict:
+    """The detection configuration at size^2 x 8 bands: one first train
+    step, then the best of 5 more (``warm_runs`` when given); one first
+    predict, then the best of 3 more (``warm_runs``): the tool's runs."""
+    import torch
+
+    from .detection.models import build_detection_model
+    from .detection.predict import infer_image_array
+    from .detection.train import _pad_batch, make_padded_train_step
+    device = _device(device)
+    train_runs, predict_runs = (5, 3) if warm_runs is None else (
+        warm_runs, warm_runs)
+
+    def sync():
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize()
+
+    model = build_detection_model(num_classes=2, in_channels=DETECTION_BANDS,
+                                  image_size=(size, size), device=device)
+    images, targets, scene = detection_inputs(size, batch)
+    padded = _pad_batch(images, targets, device)
+    step = make_padded_train_step(model, torch.optim.Adam(
+        model.parameters(), lr=1e-4))
+    reset_launches()
+
+    def best_of(fn, runs):
+        """(fn's last result, its first run's seconds, the best of the
+        ``runs`` after it, or the first's when there are none)."""
+        times = []
+        for _ in range(1 + runs):
+            t0 = time.perf_counter()
+            out = fn()
+            sync()
+            times.append(time.perf_counter() - t0)
+        return out, times[0], min(times[1:] or times)
+
+    loss, first_train, best_train = best_of(lambda: step(*padded),
+                                            train_runs)
+    out, first_pred, best_pred = best_of(lambda: infer_image_array(
+        model, scene, score_threshold=0.05, nms_threshold=0.5),
+        predict_runs)
+    mp = size * size / 1e6
+    row = {"detection_bench": {
+        "tile": f"{size}x{size}x{DETECTION_BANDS}", "batch": batch,
+        "backbone": "resnet50-w64-fpn256",
+        "train_step_s": best_train, "train_step_first_s": first_train,
+        "train_images_per_s": batch / best_train, "loss": float(loss),
+        "predict_s": best_pred, "predict_first_s": first_pred,
+        "predict_mp_s": mp / best_pred,
+        "n_detections": int(len(out["boxes"])),
+        "device": device_label(device), "launches": kernel_launches()}}
+    if emit:
+        print(json.dumps(row), flush=True)
+    return row
+
+
 CONFIGS = {1: bench_config1, 2: bench_config2, 3: bench_config3,
            4: bench_config4, 5: bench_config5}
 
@@ -454,24 +548,34 @@ def bench_default(size: int, device=None, forest: str = STAND_IN) -> dict:
 
 
 def default_size(config) -> int:
-    """A configuration's size when none is given: 1024 for config 2, else
-    4096."""
-    return CONFIG2_SIZE if config == 2 else DEFAULT_SIZE
+    """A configuration's size when none is given: 1024 for config 2 and
+    the detection configuration, else 4096."""
+    return (CONFIG2_SIZE if config == 2 else DETECTION_SIZE
+            if config == DETECTION else DEFAULT_SIZE)
 
 
-def run(size=None, config=None, forest: str = STAND_IN, device=None) -> dict:
-    """One configuration (``config`` 1-5) or the sweep (None) at ``size``
-    (:func:`default_size` when None) on ``device`` (the card when None);
-    prints and returns the row."""
+def config_arg(value: str):
+    """A ``--config`` value: ``detection`` or a configuration number."""
+    return value if value == DETECTION else int(value)
+
+
+def run(size=None, config=None, forest: str = STAND_IN, device=None,
+        batch: int = DETECTION_BATCH) -> dict:
+    """One configuration (``config`` 1-5 or ``"detection"``, which takes
+    ``batch``) or the sweep (None) at ``size`` (:func:`default_size` when
+    None) on ``device`` (the card when None); prints and returns the
+    row."""
     if size is None:
         size = default_size(config)
     device = _device(device)
     check_forest(forest)
     if config is None:
         return bench_default(size, device, forest)
+    if config == DETECTION:
+        return bench_detection(size, device, batch)
     if config not in CONFIGS:
-        raise ValueError(f"config must be one of {sorted(CONFIGS)}, not "
-                         f"{config!r}")
+        raise ValueError(f"config must be one of {sorted(CONFIGS)} or "
+                         f"{DETECTION!r}, not {config!r}")
     kw = {"forest": forest} if config in (1, 4) else {}
     return CONFIGS[config](size, device, **kw)
 
@@ -483,16 +587,18 @@ def main(argv=None) -> dict:
         description=__doc__.splitlines()[0])
     parser.add_argument("size", nargs="?", type=int, default=None,
                         help="scene side in pixels (default: 1024 for "
-                             "config 2, else 4096)")
-    parser.add_argument("--config", type=int, choices=sorted(CONFIGS),
-                        default=None, help="one configuration; none runs "
-                                           "the sweep")
+                             "config 2 and detection, else 4096)")
+    parser.add_argument("--config", type=config_arg,
+                        choices=[*sorted(CONFIGS), DETECTION], default=None,
+                        help="one configuration; none runs the sweep")
     parser.add_argument("--forest", choices=FORESTS, default=STAND_IN,
                         help="configs 1 and 4's forest")
+    parser.add_argument("--batch", type=int, default=DETECTION_BATCH,
+                        help="the detection configuration's batch")
     parser.add_argument("--device", default=None,
                         help="torch device (default: the card)")
     args = parser.parse_args(argv)
-    return run(args.size, args.config, args.forest, args.device)
+    return run(args.size, args.config, args.forest, args.device, args.batch)
 
 
 def script() -> int:

@@ -137,18 +137,22 @@ def build_cli():
 
     @main.command("bench")
     @click.option("--size", default=2048, show_default=True)
-    @click.option("--config", default=None, type=click.IntRange(1, 5),
+    @click.option("--config", default=None,
+                  type=click.Choice(["1", "2", "3", "4", "5", "detection"]),
                   help="one configuration (default: the sweep)")
     @click.option("--forest", default="stand-in", show_default=True,
                   type=click.Choice(["stand-in", "fit"]),
                   help="configs 1 and 4's forest")
+    @click.option("--batch", default=2, show_default=True,
+                  help="the detection configuration's batch")
     @click.option("--device", default=None,
                   help="torch device (default: the card)")
-    def bench_cmd(size, config, forest, device):
+    def bench_cmd(size, config, forest, batch, device):
         """End-to-end throughput benchmark (one JSON line)."""
         from . import bench
         try:
-            bench.run(size, config, forest, device)
+            bench.run(size, None if config is None else
+                      bench.config_arg(config), forest, device, batch)
         except bench.SweepFailed as exc:
             raise click.ClickException(str(exc))
 

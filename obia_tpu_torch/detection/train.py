@@ -85,17 +85,28 @@ def _deterministic_cudnn():
 def make_train_step(model: DetectionModel,
                     optimizer: torch.optim.Optimizer) -> Callable:
     """``step(images, targets) -> loss tensor``: pad the batch onto the
-    model's device, compute :func:`batch_loss`, back-propagate and take
-    one optimiser step.
+    model's device (:func:`_pad_batch`), then take
+    :func:`make_padded_train_step`'s step on it."""
+    padded_step = make_padded_train_step(model, optimizer)
+
+    def step(images, targets):
+        return padded_step(*_pad_batch(list(images), list(targets),
+                                       model.device))
+    return step
+
+
+def make_padded_train_step(model: DetectionModel,
+                           optimizer: torch.optim.Optimizer) -> Callable:
+    """``step(images, boxes, labels, hw) -> loss tensor`` on a batch that
+    :func:`_pad_batch` padded onto the model's device: compute
+    :func:`batch_loss`, back-propagate and take one optimiser step.
 
     The forward and backward run with cuDNN's deterministic algorithms and
     no autotuning, so two runs of the same steps give the same model, as
     the reference's training does: the default weight-gradient algorithms
     add with atomics. The flags are set for the step only and restored
     after it."""
-    def step(images, targets):
-        imgs, boxes, labels, hw = _pad_batch(list(images), list(targets),
-                                             model.device)
+    def step(imgs, boxes, labels, hw):
         with _deterministic_cudnn():
             loss = batch_loss(model, imgs, boxes, labels, hw)
             optimizer.zero_grad(set_to_none=True)

@@ -18,3 +18,11 @@ def resolve_device(device=None) -> torch.device:
         raise RuntimeError("no CUDA device: obia_tpu_torch runs on the card "
                            "by default; pass device='cpu' to run on the CPU")
     return torch.device("cuda")
+
+
+def input_device(x, device=None) -> torch.device:
+    """Where a function runs on input ``x``: a tensor's own device, and for
+    anything else :func:`resolve_device` of ``device``."""
+    if isinstance(x, torch.Tensor):
+        return x.device
+    return resolve_device(device)

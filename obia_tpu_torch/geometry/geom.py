@@ -6,11 +6,13 @@ point-in-polygon) or a :class:`MultiPolygon` for a region pinched at a
 corner; the GeoPackage writer reads ``bounds``, ``is_empty`` and
 ``geom_type``, and callers read ``area`` and ``centroid``. The GeoJSON and
 shapefile codecs and the CRS transforms also carry :class:`LineString`s,
-which take no part in the predicates. Labelled points
-(:class:`Point`) and ``intersects`` serve ``label_segments`` and the
-acceptable-classes mask of ``classify``; ``within``, ``contains`` and
-``overlaps`` (shapely's semantics) and :func:`affine_transform` serve the
-tiled segmentation and the rasteriser. Coordinates are float64 numpy arrays.
+which ``within``, ``contains`` and ``overlaps`` take as paths and
+``intersects`` does not take. Labelled points (:class:`Point`) and
+``intersects`` serve ``label_segments`` and the acceptable-classes mask of
+``classify``; ``within``, ``contains`` and ``overlaps`` (shapely's
+semantics) serve the tiled segmentation and ``sjoin``, and
+:func:`affine_transform` the rasteriser. Coordinates are float64 numpy
+arrays.
 """
 from __future__ import annotations
 
@@ -59,6 +61,11 @@ class Geometry:
         return (_any_point_strictly_inside(self, other)
                 or _any_point_strictly_inside(other, self))
 
+    def buffer0(self) -> "Geometry":
+        """The geometry itself, as the JAX package's stand-in for shapely's
+        ``buffer(0)`` returns it: nothing is repaired."""
+        return self
+
     def __repr__(self):
         b = self.bounds
         return f"<{self.geom_type} bounds=({b[0]:.3f}, {b[1]:.3f}, {b[2]:.3f}, {b[3]:.3f})>"
@@ -79,6 +86,14 @@ class Point(Geometry):
     @property
     def coords(self):
         return [(self.x, self.y)]
+
+    @property
+    def centroid(self) -> "Point":
+        return self
+
+    @property
+    def area(self) -> float:
+        return 0.0
 
 
 class LineString(Geometry):
@@ -205,6 +220,11 @@ class Polygon(Geometry):
         for h in self._holes:
             inside &= ~_points_in_ring(h.coords_array, xs, ys, strict=True)
         return inside
+
+    def difference_bbox(self, other_bounds) -> "Polygon":
+        """The polygon itself, unchanged: the JAX package's placeholder,
+        kept for its name; no bounding box is subtracted."""
+        return self
 
 
 class MultiPolygon(Geometry):
@@ -354,8 +374,7 @@ def _segments_intersect(p1, p2, p3, p4) -> bool:
 
 def _rings_of(geom: Geometry) -> List[np.ndarray]:
     """The polygon rings of ``geom`` with at least 2 points (empty
-    geometries have no boundary): the reference's ``_paths_of`` without
-    its LineString paths, which the port's predicates do not take."""
+    geometries have no boundary)."""
     if isinstance(geom, Polygon):
         rings = [geom.exterior.coords_array] + [h.coords_array
                                                 for h in geom.interiors]
@@ -364,6 +383,14 @@ def _rings_of(geom: Geometry) -> List[np.ndarray]:
     else:
         rings = []
     return [r for r in rings if len(r) >= 2]
+
+
+def _paths_of(geom: Geometry) -> List[np.ndarray]:
+    """The boundary paths of ``within``, ``contains`` and ``overlaps``:
+    :func:`_rings_of`, or a LineString's own path of at least 2 points."""
+    if isinstance(geom, LineString):
+        return [p for p in [geom.coords_array] if len(p) >= 2]
+    return _rings_of(geom)
 
 
 def _boundary_intersects(g1: Geometry, g2: Geometry) -> bool:
@@ -413,7 +440,7 @@ def _any_point_strictly_inside(g: Geometry, container: Geometry) -> bool:
     container's boundary)."""
     if not isinstance(container, (Polygon, MultiPolygon)):
         return False
-    for path in _rings_of(g):
+    for path in _paths_of(g):
         mid = (path[:-1] + path[1:]) * 0.5
         xs = np.concatenate([path[:, 0], mid[:, 0]])
         ys = np.concatenate([path[:, 1], mid[:, 1]])
@@ -456,8 +483,8 @@ def _segments_cross_strict(p1, p2, p3, p4) -> bool:
 
 
 def _proper_boundary_crossing(inner: Geometry, outer: Geometry) -> bool:
-    for r1 in _rings_of(inner):
-        for r2 in _rings_of(outer):
+    for r1 in _paths_of(inner):
+        for r2 in _paths_of(outer):
             if not _bbox_overlap((r1[:, 0].min(), r1[:, 1].min(),
                                   r1[:, 0].max(), r1[:, 1].max()),
                                  (r2[:, 0].min(), r2[:, 1].min(),
@@ -479,7 +506,7 @@ def _within(inner: Geometry, outer: Geometry) -> bool:
                                           np.array(inner.y)))
     if getattr(inner, "is_empty", False):
         return False  # shapely: empty geometries are within nothing
-    rings = _rings_of(inner)
+    rings = _paths_of(inner)  # polygon rings, or the LineString path
     if not rings:
         return False
     # all vertices AND edge midpoints inside (midpoints catch edges that

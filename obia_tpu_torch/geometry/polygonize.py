@@ -1,4 +1,4 @@
-"""Rings -> polygons (the port's copy of the ring grouping of
+"""Label rasters -> polygons (the port's counterpart of
 ``obia_tpu/geometry/polygonize.py``).
 
 The port's native polygoniser (:mod:`obia_tpu_torch.native`) traces every
@@ -6,15 +6,17 @@ label of a row-wise RLE raster into closed rectilinear rings with a
 right-turn-first rule (so regions touching only at a corner separate,
 matching GDAL 4-connectivity semantics). Here the rings of each label are
 grouped: positive signed area in (col, row) space is an exterior, negative
-a hole, assigned to the exterior that contains it.
+a hole, assigned to the exterior that contains it. A dense raster is
+run-length encoded first (:func:`polygonize_labels`); there is no
+numpy tracer to fall back on.
 """
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
-from .geom import Polygon
+from .geom import Polygon, affine_transform_coords
 
 
 def _polygons_with_holes(exteriors: List[np.ndarray],
@@ -67,3 +69,32 @@ def group_rings_packed(labels: np.ndarray, areas: np.ndarray,
             (exteriors if pos[i] else holes).append(c)
         out[label] = _polygons_with_holes(exteriors, holes)
     return out
+
+
+def polygonize_labels_rle(values: np.ndarray, lengths: np.ndarray, shape,
+                          simplify: bool = True,
+                          affine: Optional[Sequence[float]] = None
+                          ) -> Dict[int, List[Polygon]]:
+    """{label: [Polygon, ...]} of every non-negative label of a row-wise
+    RLE raster (runs break at row ends), one Polygon with its holes per
+    connected region, in pixel-corner (col, row) coordinates, or through
+    the shapely-order ``affine`` when given. ``simplify`` drops collinear
+    corners."""
+    from .. import native
+    rlabels, n_pts, areas, coords = native.polygonize_rings_rle_packed(
+        values, lengths, shape, simplify=simplify)
+    if affine is not None:
+        coords = affine_transform_coords(coords, affine)
+    offsets = np.concatenate([[0], np.cumsum(n_pts)])
+    return group_rings_packed(rlabels, areas, offsets, coords)
+
+
+def polygonize_labels(labels, simplify: bool = True
+                      ) -> Dict[int, List[Polygon]]:
+    """:func:`polygonize_labels_rle` of a dense (H, W) label raster (an
+    array, or a tensor, encoded on its device)."""
+    import torch
+
+    from ..ops.slic import download_labels_rle
+    return polygonize_labels_rle(*download_labels_rle(torch.as_tensor(
+        labels)), simplify=simplify)

@@ -251,6 +251,20 @@ def _parse_geokeys(ifd: TiffIFD) -> Dict[int, object]:
     return out
 
 
+@dataclass
+class TiffInfo:
+    """A raster's metadata, as :attr:`TiffReader.info` gives it."""
+    width: int
+    height: int
+    count: int            # samples per pixel (bands)
+    dtype: np.dtype
+    transform: Affine
+    crs: Optional[CRS]
+    nodata: Optional[float]
+    compression: int
+    tiled: bool
+
+
 class TiffReader:
     """Parses a (Geo)TIFF held fully in memory and decodes bands on demand."""
 
@@ -339,6 +353,12 @@ class TiffReader:
                 self.nodata = float(nod.strip())
             except ValueError:
                 pass
+
+    @property
+    def info(self) -> TiffInfo:
+        return TiffInfo(self.width, self.height, self.spp, self.dtype,
+                        self.transform, self.crs, self.nodata,
+                        self.compression, self.tiled)
 
     # -- decoding -------------------------------------------------------------
     def _decode_chunk(self, idx: int, rows: int, cols: int, spp: int) -> np.ndarray:

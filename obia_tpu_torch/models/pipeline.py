@@ -49,7 +49,14 @@ class FusedMLP(nn.Module):
                                               for t in (w1, b1, w2, b2))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return torch.relu(x @ self.w1 + self.b1) @ self.w2 + self.b2
+        return mlp_apply({k: getattr(self, k) for k in _PARAM_NAMES}, x)
+
+
+def mlp_apply(params, x: torch.Tensor) -> torch.Tensor:
+    """The head as a function of a JAX-layout parameter dict ``{"w1",
+    "b1", "w2", "b2"}`` of tensors: ``relu(x @ w1 + b1) @ w2 + b2``."""
+    h = torch.relu(x @ params["w1"] + params["b1"])
+    return h @ params["w2"] + params["b2"]
 
 
 def init_mlp_params(generator_or_seed, n_features: int, n_classes: int,

@@ -18,11 +18,12 @@ copies of skimage's ``graycomatrix``/``graycoprops``, for the
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from ..device import input_device
 from .glcm_kernel import glcm_sums
 
 GLCM_PROP_NAMES = ("contrast", "dissimilarity", "homogeneity", "ASM",
@@ -166,6 +167,33 @@ def segment_glcm_props_packed(image: torch.Tensor, labels: torch.Tensor,
         outs.append(glcm_props_from_sums(sums_A, asm_A, compute_asm))
     packed = torch.stack(outs).to(torch.float32).cpu().numpy()  # (B, 6, K)
     return GLCM_PROP_NAMES, np.moveaxis(packed, 0, 2)
+
+
+def segment_glcm_props(image: torch.Tensor, labels: torch.Tensor,
+                       num_segments: int, levels: int = 256,
+                       distance: int = 2,
+                       angles: Tuple[float, ...] = DEFAULT_ANGLES,
+                       compute_asm: bool = True,
+                       bands: Optional[Tuple[int, ...]] = None
+                       ) -> Dict[str, np.ndarray]:
+    """{prop: (K, B) float32 numpy} of :func:`segment_glcm_props_packed`,
+    one entry per name of GLCM_PROP_NAMES."""
+    names, packed = segment_glcm_props_packed(
+        image, labels, num_segments, levels=levels, distance=distance,
+        angles=angles, compute_asm=compute_asm, bands=bands)
+    return dict(zip(names, packed))
+
+
+def glcm_table(image, labels, num_segments: int, device=None,
+               **kw) -> Dict[str, np.ndarray]:
+    """:func:`segment_glcm_props` of an (H, W, C) image and (H, W) labels,
+    arrays or tensors, on the image's device when that is a tensor, else
+    on ``device`` (the card when None); ``kw`` are its options."""
+    dev = input_device(image, device)
+    return segment_glcm_props(
+        torch.as_tensor(image, dtype=torch.float32, device=dev),
+        torch.as_tensor(labels, dtype=torch.int32, device=dev),
+        num_segments, **kw)
 
 
 def graycomatrix_reference(arr: np.ndarray, distance: int = 2,

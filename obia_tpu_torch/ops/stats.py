@@ -16,10 +16,15 @@ an object with zero variance gets NaN skewness and kurtosis.
 """
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Callable, Dict, Optional
 
+import numpy as np
 import torch
 
+from ..device import input_device
+
+SPECTRAL_STAT_NAMES = ("mean", "variance", "min", "max", "skewness",
+                       "kurtosis")
 SPECTRAL_PACK_ORDER = ("count", "mean", "variance", "min", "max",
                        "skewness", "kurtosis")
 # pixels whose float64 rows exist at once in a blocked sum: at 8 bands the
@@ -162,3 +167,19 @@ def spectral_moments_packed(image: torch.Tensor, labels: torch.Tensor,
     out = segment_spectral_moments(image, labels, num_segments, valid)
     packed = torch.stack([out[k] for k in SPECTRAL_PACK_ORDER])
     return SPECTRAL_PACK_ORDER, packed.cpu().numpy()
+
+
+def spectral_stats_table(image, labels, num_segments: int, valid=None,
+                         device=None) -> Dict[str, np.ndarray]:
+    """{stat: (K, C) numpy} of :func:`segment_spectral_moments` (``count``
+    and :data:`SPECTRAL_STAT_NAMES`) for an (H, W, C) image and (H, W)
+    labels, arrays or tensors. It runs on the image's device when that is
+    a tensor, else on ``device`` (the card when None), where the labels and
+    ``valid`` go too."""
+    dev = input_device(image, device)
+    out = segment_spectral_moments(
+        torch.as_tensor(image, dtype=torch.float32, device=dev),
+        torch.as_tensor(labels, dtype=torch.int32, device=dev), num_segments,
+        None if valid is None else torch.as_tensor(valid, dtype=torch.bool,
+                                                   device=dev))
+    return {k: v.cpu().numpy() for k, v in out.items()}

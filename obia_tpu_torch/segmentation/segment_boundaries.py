@@ -44,6 +44,16 @@ def _normalize_select(dev: torch.Tensor, bands: Sequence[int]
         pos, brange, torch.ones_like(brange)), torch.zeros_like(sel))
 
 
+def normalize_band(band: np.ndarray) -> np.ndarray:
+    """A numpy band min-max normalised to [0, 1]; a constant band maps to
+    zeros (the host form of :func:`_normalize_select`)."""
+    bmin = np.min(band)
+    brange = np.max(band) - bmin
+    if brange == 0:
+        return np.zeros_like(band)
+    return (band - bmin) / brange
+
+
 class SegmentLayer:
     """The polygon layer: segment ids 1..K (row k holds label k - 1), one
     geometry per segment, the CRS and transform, and the label raster on
@@ -94,15 +104,11 @@ class SegmentLayer:
 def _polygonize(label_raster, n_labels: int, affine) -> List:
     """World-space geometry per label 0..n-1 (Polygon, or MultiPolygon for a
     region pinched at a corner) from the RLE label raster."""
-    from .. import native
-    from ..geometry.geom import MultiPolygon, affine_transform_coords
-    from ..geometry.polygonize import group_rings_packed
+    from ..geometry.geom import MultiPolygon
+    from ..geometry.polygonize import polygonize_labels_rle
 
-    rlabels, n_pts, areas, coords = native.polygonize_rings_rle_packed(
-        label_raster.values, label_raster.lengths, label_raster.shape)
-    coords = affine_transform_coords(coords, affine)
-    offsets = np.concatenate([[0], np.cumsum(n_pts)])
-    polys = group_rings_packed(rlabels, areas, offsets, coords)
+    polys = polygonize_labels_rle(label_raster.values, label_raster.lengths,
+                                  label_raster.shape, affine=affine)
     out = []
     for label in range(n_labels):
         plist = polys.get(label, [])

@@ -18,8 +18,10 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from ..geometry.crs import CRS
-from ..geometry.geom import Geometry
+from ..geometry.geom import Geometry, MultiPolygon, Point, Polygon
 from ..io import gpkg as gpkg_io
+
+PREDICATES = ("intersects", "within", "contains")
 
 DRIVERS = ("GPKG", "GeoJSON", "ESRI Shapefile")
 
@@ -136,6 +138,58 @@ def write_features(path, columns: List[Tuple[str, Sequence]],
     else:
         gpkg_io.write_features(str(path), columns, geometries,
                                layer or _layer_from_path(path), crs)
+
+
+def join_pairs(left: Sequence, right: Sequence,
+               predicate: str = "intersects") -> List[Tuple[int, int]]:
+    """The (left position, right position) pairs of two geometry lists for
+    which ``left.predicate(right)`` holds, in left order and, for each
+    left row, right order: the pairs of ``sjoin`` (the JAX package's
+    ``obia_tpu/vector/geodataframe.py:186-237``). A None geometry joins
+    nothing. Polygons against points take a bounding-box prefilter and a
+    vectorised point-in-polygon test for ``intersects`` and ``contains``
+    (a point on the boundary counts); every other pair, and every
+    ``within``, a bounding-box reject and then the geometries'
+    predicate."""
+    if predicate not in PREDICATES:
+        raise NotImplementedError(f"predicate {predicate!r} not supported")
+    pairs: List[Tuple[int, int]] = []
+    all_points = all(isinstance(g, Point) for g in right if g is not None)
+    all_polys = all(isinstance(g, (Polygon, MultiPolygon))
+                    for g in left if g is not None)
+    if all_points and all_polys and predicate != "within":
+        xs = np.array([g.x if g is not None else np.nan for g in right])
+        ys = np.array([g.y if g is not None else np.nan for g in right])
+        for li, lg in enumerate(left):
+            if lg is None:
+                continue
+            b = lg.bounds
+            cand = np.nonzero((xs >= b[0]) & (xs <= b[2])
+                              & (ys >= b[1]) & (ys <= b[3]))[0]
+            if len(cand) == 0:
+                continue
+            hit = lg.contains_points(xs[cand], ys[cand])
+            pairs.extend((li, int(ri)) for ri in cand[hit])
+        return pairs
+    rbounds = np.array([g.bounds if g is not None else (np.nan,) * 4
+                        for g in right]).reshape(-1, 4)
+    for li, lg in enumerate(left):
+        if lg is None:
+            continue
+        b = lg.bounds
+        cand = np.nonzero(~((rbounds[:, 2] < b[0]) | (b[2] < rbounds[:, 0])
+                            | (rbounds[:, 3] < b[1])
+                            | (b[3] < rbounds[:, 1])))[0]
+        for ri in cand:
+            rg = right[ri]
+            if rg is None:
+                continue
+            ok = (lg.intersects(rg) if predicate == "intersects"
+                  else lg.within(rg) if predicate == "within"
+                  else rg.within(lg))
+            if ok:
+                pairs.append((li, int(ri)))
+    return pairs
 
 
 def _layer_from_path(path) -> str:

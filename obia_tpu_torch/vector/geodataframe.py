@@ -3,8 +3,8 @@ port's copy of ``obia_tpu/vector/geodataframe.py``, trimmed to
 construction, ``total_bounds``, ``bounds``, ``to_crs``, the ``intersects``,
 ``within`` and ``overlaps`` predicates, the GeoPackage, GeoJSON and
 shapefile writer and reader (:func:`read_file`, through the pandas-free
-:mod:`.features`), and ``sjoin``, which ``label_segments`` joins labelled
-points with).
+:mod:`.features`), and ``sjoin`` on ``intersects``, ``within`` or
+``contains``, with which ``label_segments`` joins labelled points).
 
 This module imports pandas, which the card's machine need not have: the
 port imports it only inside ``ObjectTable.to_geodataframe``, at the API
@@ -12,13 +12,13 @@ edge.
 """
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import Optional
 
 import numpy as np
 import pandas as pd
 
 from ..geometry.crs import CRS
-from ..geometry.geom import Geometry, MultiPolygon, Point, Polygon
+from ..geometry.geom import Geometry
 from . import features
 
 
@@ -136,50 +136,15 @@ def read_file(path: str, layer: Optional[str] = None,
 def sjoin(left: GeoDataFrame, right: GeoDataFrame, how: str = "inner",
           predicate: str = "intersects",
           lsuffix: str = "left", rsuffix: str = "right") -> GeoDataFrame:
-    """Inner spatial join on ``intersects``, geopandas-shaped: one row per
-    (left, right) pair that intersects, the left index kept, the right
-    row's position in ``index_right``, and colliding column names suffixed
-    on both sides. Right sides of points against polygons take a bbox
-    prefilter and a vectorised point-in-polygon test."""
+    """Inner spatial join, geopandas-shaped: one row per (left, right) pair
+    for which ``predicate`` (``intersects``, ``within`` or ``contains``)
+    holds, in :func:`.features.join_pairs`' order, the left index kept, the
+    right row's index in ``index_right``, and colliding column names
+    suffixed on both sides."""
     if how != "inner":
         raise NotImplementedError("only how='inner' is supported")
-    if predicate != "intersects":
-        raise NotImplementedError(f"predicate {predicate!r} not supported")
-
-    lgeoms = list(left.geometry)
-    rgeoms = list(right.geometry)
-    pairs: List[tuple] = []  # (left_pos, right_pos)
-
-    all_points = all(isinstance(g, Point) for g in rgeoms if g is not None)
-    all_polys = all(isinstance(g, (Polygon, MultiPolygon))
-                    for g in lgeoms if g is not None)
-    if all_points and all_polys:
-        xs = np.array([g.x if g is not None else np.nan for g in rgeoms])
-        ys = np.array([g.y if g is not None else np.nan for g in rgeoms])
-        for li, lg in enumerate(lgeoms):
-            if lg is None:
-                continue
-            b = lg.bounds
-            cand = np.nonzero((xs >= b[0]) & (xs <= b[2])
-                              & (ys >= b[1]) & (ys <= b[3]))[0]
-            if len(cand) == 0:
-                continue
-            hit = lg.contains_points(xs[cand], ys[cand])
-            for ri in cand[hit]:
-                pairs.append((li, int(ri)))
-    else:
-        rbounds = np.array([g.bounds if g is not None else (np.nan,) * 4
-                            for g in rgeoms])
-        for li, lg in enumerate(lgeoms):
-            if lg is None:
-                continue
-            b = lg.bounds
-            cand = np.nonzero(~((rbounds[:, 2] < b[0]) | (b[2] < rbounds[:, 0])
-                                | (rbounds[:, 3] < b[1]) | (b[3] < rbounds[:, 1])))[0]
-            for ri in cand:
-                rg = rgeoms[ri]
-                if rg is not None and lg.intersects(rg):
-                    pairs.append((li, int(ri)))
+    pairs = features.join_pairs(list(left.geometry), list(right.geometry),
+                                predicate)
 
     if not pairs:
         out = GeoDataFrame(columns=list(left.columns)

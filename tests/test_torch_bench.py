@@ -259,3 +259,120 @@ def test_default_sizes_follow_bench_py():
     assert tbench.default_size(None) == tbench.default_size(1) == 4096
     assert tbench.default_size(2) == 1024
     assert tbench.default_size(5) == 4096  # the real size, not 768
+
+
+# -- the detection configuration (tools/bench_detection.py) -------------------
+
+def _tool_draws(monkeypatch, capsys, size, batch):
+    """Run tools/bench_detection.py's ``main`` with its model, train step
+    and predict replaced by recorders: returns (tiles, targets, scene) as
+    the tool draws them, and the row it prints."""
+    import importlib
+    import importlib.util
+
+    import jax.numpy as jnp
+
+    from obia_tpu.detection import models as jmodels
+    from obia_tpu.detection import train as jtrain
+    # the module: the package's ``predict`` attribute is a function
+    jpredict = importlib.import_module("obia_tpu.detection.predict")
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    seen = {}
+    real_pad = jtrain._pad_batch
+
+    class Model:
+        params = {"w": jnp.zeros(1)}
+        batch_stats = {}
+
+        def anchors(self, hw):
+            return np.zeros((1, 4), np.float32)
+
+    def pad(images, targets):
+        seen["images"], seen["targets"] = images, targets
+        return real_pad(images, targets)
+
+    def make_step(model, tx):
+        return lambda params, bs, opt, *args, hw: (params, bs, opt,
+                                                   jnp.float32(0.5))
+
+    def infer(model, scene, **kw):
+        seen["scene"] = scene
+        return {"boxes": np.zeros((0, 4))}
+
+    monkeypatch.setattr(jmodels, "build_detection_model",
+                        lambda **kw: Model())
+    monkeypatch.setattr(jtrain, "_pad_batch", pad)
+    monkeypatch.setattr(jtrain, "_make_train_step", make_step)
+    monkeypatch.setattr(jpredict, "infer_image_array", infer)
+    monkeypatch.setattr(sys, "argv", ["bench_detection.py", str(size),
+                                      str(batch)])
+    monkeypatch.setattr(sys, "path", list(sys.path))
+    for var in ("JAX_COMPILATION_CACHE_DIR",
+                "JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS"):
+        monkeypatch.setenv(var, os.environ.get(var, ""))
+    spec = importlib.util.spec_from_file_location(
+        "tool_bench_detection", os.path.join(root, "tools",
+                                             "bench_detection.py"))
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    tool.main()
+    row = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    return seen["images"], seen["targets"], seen["scene"], row
+
+
+def test_detection_inputs_are_the_tools_draws(monkeypatch, capsys):
+    images, targets, scene, _ = _tool_draws(monkeypatch, capsys, 96, 2)
+    got_images, got_targets, got_scene = tbench.detection_inputs(96, 2)
+    assert len(got_images) == len(images) == 2
+    for g, w in zip(got_images, images):
+        assert g.dtype == w.dtype and np.array_equal(g, w)
+    for g, w in zip(got_targets, targets):
+        for k in ("boxes", "labels"):
+            assert g[k].dtype == w[k].dtype
+            assert np.array_equal(g[k], w[k])
+    assert got_scene.dtype == scene.dtype and np.array_equal(got_scene,
+                                                             scene)
+
+
+def test_detection_row_has_the_tools_keys(monkeypatch, capsys):
+    *_, tool_row = _tool_draws(monkeypatch, capsys, 128, 1)
+    row = tbench.bench_detection(128, device="cpu", batch=1, emit=False,
+                                 warm_runs=1)
+    assert list(row) == list(tool_row) == ["detection_bench"]
+    got, want = row["detection_bench"], tool_row["detection_bench"]
+    assert set(got) == set(want) | {"device", "launches"}
+    for k in ("tile", "batch", "backbone"):
+        assert got[k] == want[k]
+    assert got["device"] == "cpu" and not any(got["launches"].values())
+    assert np.isfinite(got["loss"]) and got["loss"] > 0
+    assert got["train_step_s"] > 0 and got["train_step_first_s"] > 0
+    assert got["predict_s"] > 0 and got["n_detections"] >= 0
+    assert got["train_images_per_s"] == 1 / got["train_step_s"]
+
+
+def test_detection_command_routes_size_batch_and_device(monkeypatch):
+    seen = []
+    monkeypatch.setattr(tbench, "bench_detection", lambda *a: (
+        seen.append(a) or {"detection_bench": {}}))
+    tbench.main(["--config", "detection", "--device", "cpu"])
+    tbench.main(["256", "--config", "detection", "--batch", "1",
+                 "--device", "cpu"])
+    assert seen == [(1024, "cpu", 2), (256, "cpu", 1)]
+    assert tbench.default_size("detection") == 1024
+    from click.testing import CliRunner
+
+    from obia_tpu_torch.cli import build_cli
+    res = CliRunner().invoke(build_cli(), [
+        "bench", "--config", "detection", "--size", "64", "--batch", "3",
+        "--device", "cpu"])
+    assert res.exit_code == 0, res.output
+    assert seen[-1] == (64, "cpu", 3)
+    with pytest.raises(SystemExit):
+        tbench.main(["--config", "6", "--device", "cpu"])
+
+
+def test_detection_without_a_card_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tbench.run(64, "detection")

@@ -183,3 +183,138 @@ def test_pixel_counts_use_the_pixel_area(north_star_runs):
     assert one.sum() == pytest.approx(256 * 256, rel=1e-12)
     half = chip_smoke.pixel_counts(geoms, Affine(2.0, 0, 0, 0, -2.0, 0))
     np.testing.assert_allclose(half, one / 4)
+
+
+# -- phase 27's helpers (the obia_torch flow, the new functions, the
+# detection row), on the CPU at 96^2 -----------------------------------------
+
+@pytest.fixture(scope="module")
+def alias_run(tmp_path_factory):
+    """Phase 27 (a)'s flow through ``obia_torch`` at 96^2 on the CPU (30
+    segments, so that every object has texture pairs), as phase 27 runs it
+    at 4096^2 on the card, and a direct ``obia_tpu_torch`` call on the
+    same scene."""
+    from obia_tpu_torch.segmentation.segment import segment
+    root = tmp_path_factory.mktemp("alias")
+    scene = chip_smoke.build_scene(h=96, w=96)
+    path = chip_smoke.write_scene(str(root / "scene.tif"), scene)
+    s, res, back, wall = chip_smoke.alias_flow(
+        path, str(root / "classified.tif"), "cpu", n_segments=30)
+    direct = segment(chip_smoke.as_image(scene), method="slic",
+                     n_segments=30, compactness=10, device="cpu")
+    return s, res, back, direct
+
+
+def test_alias_phase_runs_on_the_cpu(alias_run):
+    """Phase 27 (a) and (b) end to end at 96^2, K held to a direct
+    ``obia_tpu_torch`` call's as phase 27 holds it to the bench's config-1
+    row (the same call)."""
+    launches = chip_smoke.alias_phase("cpu", len(alias_run[3].table),
+                                      size=96, device="cpu", n_segments=30,
+                                      cross=48, n_points=40)
+    assert set(launches) == {"glcm_sums", "glcm_hist", "qs_density",
+                             "qs_parent"}
+    assert not any(launches.values())  # the CPU takes the twins
+
+
+def _tampered(alias_run, what):
+    import copy
+    s, res, back, direct = alias_run
+    if what == "count":
+        return (s, res, back, direct, len(s.table) + 1)
+    if what == "labels":
+        other = copy.copy(direct)
+        other.layer = copy.copy(direct.layer)
+        rle = direct.layer.label_raster
+        vals = rle.values.copy()
+        vals[0] += 1
+        other.layer.label_raster = type(rle)(vals, rle.lengths, rle.shape)
+        return (s, res, back, other, None)
+    if what == "geotiff":
+        bad = back.copy()
+        bad[0, 0, 0] = 99
+        return (s, res, bad, direct, None)
+    s2 = copy.copy(s)
+    s2.table = copy.copy(s.table)
+    col = np.asarray(s.table["b0_mean"], np.float64).copy()
+    col[1] = np.nan
+    s2.table = s.table.with_columns(b0_mean=col)
+    return (s2, res, back, direct, None)
+
+
+def test_alias_checks_pass(alias_run):
+    s, res, back, direct = alias_run
+    chip_smoke.check_alias_flow(s, res, back, direct, len(s.table), "96^2")
+    assert back.shape[:2] == (96, 96) and len(s.table) > 10
+
+
+@pytest.mark.parametrize("tamper,match", [
+    ("count", "objects"), ("labels", "direct"), ("geotiff", "GeoTIFF"),
+    ("nan", "NaN")])
+def test_alias_checks_refuse(alias_run, tamper, match):
+    with pytest.raises(AssertionError, match=match):
+        chip_smoke.check_alias_flow(*_tampered(alias_run, tamper), "96^2")
+
+
+def test_join_check_refuses_a_point_in_no_polygon(alias_run):
+    s = alias_run[0]
+    geoms = list(s.table.geometry)
+    shape = tuple(s.layer.labels_dev.shape)
+    chip_smoke.join_check(geoms, s.layer.transform, shape, 50, 1, "96^2")
+    with pytest.raises(AssertionError, match="no polygon"):
+        chip_smoke.join_check(geoms[1:], s.layer.transform, shape, 200, 1,
+                              "96^2")
+
+
+@pytest.mark.parametrize("rtol,atol,delta,match", [
+    (0, 0, 0.0, None), (0, 0, 1e-6, "beyond"), (1e-4, 0, 1e-6, None),
+    (0, 0, np.nan, "NaN slots")])
+def test_same_tables(rtol, atol, delta, match):
+    want = {"a": np.array([1.0, np.nan, 3.0], np.float32)}
+    got = {"a": want["a"] + np.array([delta, 0, 0], np.float32)}
+    if match is None:
+        chip_smoke._same_tables(got, want, rtol, atol, "t")
+    else:
+        with pytest.raises(AssertionError, match=match):
+            chip_smoke._same_tables(got, want, rtol, atol, "t")
+    with pytest.raises(AssertionError, match="names"):
+        chip_smoke._same_tables({"b": want["a"]}, want, 0, 0, "t")
+
+
+def _detection_row(**change):
+    row = {k: 1.0 for k in chip_smoke.TOOL_DETECTION_KEYS}
+    row.update(device="NVIDIA H100 80GB HBM3, 700.00 W",
+               launches={"glcm_sums": 0})
+    row.update(change)
+    return {"detection_bench": row}
+
+
+@pytest.mark.parametrize("change,match", [
+    ({}, None), ({"loss": float("nan")}, "loss"),
+    ({"device": "cpu"}, "device"), ({"predict_s": 0.0}, "times"),
+    ({"extra": 1}, "keys")])
+def test_check_detection_row(change, match):
+    card = "NVIDIA H100 80GB HBM3, 700.00 W"
+    if match is None:
+        assert chip_smoke.check_detection_row(_detection_row(), card)[
+            "loss"] == 1.0
+    else:
+        with pytest.raises(AssertionError, match=match):
+            chip_smoke.check_detection_row(_detection_row(**change), card)
+
+
+def test_detection_keys_are_the_tools():
+    """chip_smoke's copy of tools/bench_detection.py's keys: the keys of
+    the ``detection_bench`` dict that the tool prints."""
+    import ast
+    from pathlib import Path
+
+    tool = Path(chip_smoke.ROOT) / "tools" / "bench_detection.py"
+    rows = [n for n in ast.walk(ast.parse(tool.read_text()))
+            if isinstance(n, ast.Dict) and any(
+                isinstance(k, ast.Constant) and k.value == "detection_bench"
+                for k in n.keys)]
+    assert len(rows) == 1
+    inner = rows[0].values[0]
+    assert tuple(k.value for k in inner.keys) == \
+        chip_smoke.TOOL_DETECTION_KEYS

@@ -7,11 +7,14 @@ back (the rasterise path) with a LAS point cloud, the sharded mosaic on a
 2 x 4 CPU mesh, tiled segmentation with the ``sigma`` pre-blur, the canopy
 seed and cost-surface workflow, the detection subsystem: build, train
 on GeoTIFF tiles, predict; the fused model's forward and one sharded
-training step, the process-group start-up on one process, and the bench's
-config 1 with its stand-in forest), and never
+training step, the process-group start-up on one process, the bench's
+config 1 with its stand-in forest, and the README's flow through the
+``obia_torch`` import paths with the MLP route, every ``obia_torch`` module
+and ``obia_tpu_torch.vector`` imported), and never
 loads jax, flax, optax, click,
-tqdm, matplotlib or OpenCV (the CLI module imports without click). Its
-sources and ``chip_smoke.py`` import neither jax, ``obia_tpu`` nor the
+tqdm, matplotlib or OpenCV (the CLI module imports without click), nor
+the ``obia`` namespace. Its sources, ``obia_torch``'s and
+``chip_smoke.py`` import neither jax, ``obia_tpu``, ``obia`` nor the
 repository's ``bench.py``."""
 import subprocess
 import sys
@@ -24,7 +27,7 @@ SCRIPT = textwrap.dedent("""
     import builtins
     import sys
     BLOCKED = ("jax", "jaxlib", "pandas", "sklearn", "PIL", "flax", "optax",
-               "obia_tpu", "click", "tqdm", "matplotlib", "cv2")
+               "obia_tpu", "obia", "click", "tqdm", "matplotlib", "cv2")
     real_import = builtins.__import__
 
     def blocked(name, *a, **k):
@@ -152,6 +155,26 @@ SCRIPT = textwrap.dedent("""
         assert "sklearn" in str(exc)
     else:
         raise AssertionError("forest='fit' ran without sklearn")
+
+    import importlib
+    import pkgutil
+    import obia_torch
+    import obia_tpu_torch.vector
+    for m in pkgutil.walk_packages(obia_torch.__path__, "obia_torch."):
+        importlib.import_module(m.name)
+    from obia_torch.classification.classify import classify as oclassify
+    from obia_torch.handlers.geotif import open_geotiff
+    from obia_torch.segmentation.segment import segment as osegment
+    hs = osegment(open_geotiff("scene.tif"), method="slic", n_segments=12,
+                  compactness=10, device="cpu")
+    ht = hs.table
+    hy = (np.asarray(ht["b0_mean"]) > np.median(ht["b0_mean"])).astype(int)
+    hidx = np.arange(0, len(ht), 2)
+    hout = oclassify(ht, ht.take(hidx).with_columns(feature_class=hy[hidx]),
+                     method="mlp", hidden_layer_sizes=(8,), max_iter=5,
+                     device="cpu")
+    hout.write_geotiff("classified.tif")
+    assert open_geotiff("classified.tif").img_data.shape[:2] == (64, 80)
     for mod in BLOCKED:
         assert mod not in sys.modules, mod
     print("NO_JAX_OK", len(t), f, len(tq), len(tm))
@@ -296,22 +319,31 @@ def test_detection_runs_without_jax_pandas_sklearn_pil(tmp_path):
 
 
 def test_port_sources_never_import_jax():
-    """No source of the port, nor chip_smoke.py, imports jax, flax, optax,
-    tqdm, the JAX package or the repository's bench.py (the port has its
-    own, ``obia_tpu_torch/bench.py``); PIL, matplotlib and OpenCV only
-    inside a function (a machine with only torch, numpy and scipy has none
-    of them)."""
+    """No source of the port, of ``obia_torch`` nor chip_smoke.py imports
+    jax, flax, optax, tqdm, the JAX package, the ``obia`` namespace or the
+    repository's bench.py (the port has its own,
+    ``obia_tpu_torch/bench.py``), and ``obia_torch`` names no module of the
+    JAX package; PIL, matplotlib and OpenCV only inside a function (a
+    machine with only torch, numpy and scipy has none of them)."""
     bad = []
     sources = [*(REPO / "obia_tpu_torch").rglob("*.py"),
-               REPO / "chip_smoke.py"]
+               *(REPO / "obia_torch").rglob("*.py"), REPO / "chip_smoke.py"]
     for path in sources:
-        for n, line in enumerate(path.read_text().splitlines(), 1):
+        text = path.read_text()
+        if path.is_relative_to(REPO / "obia_torch") and \
+                text.count("obia_tpu") != text.count("obia_tpu_torch"):
+            bad.append(f"{path}: names obia_tpu")
+        for n, line in enumerate(text.splitlines(), 1):
             words = line.strip().split()
             if words[:1] not in (["import"], ["from"]) or len(words) < 2:
                 continue
             top = words[1].split(".")[0]
-            if top in ("jax", "jaxlib", "obia_tpu", "flax", "optax",
+            if top in ("jax", "jaxlib", "obia_tpu", "obia", "flax", "optax",
                        "tqdm", "bench") or (top in ("PIL", "matplotlib", "cv2")
                                    and not line[:1].isspace()):
                 bad.append(f"{path}:{n}")
+    assert (sorted(p.relative_to(REPO / "obia_torch")
+                   for p in (REPO / "obia_torch").rglob("*.py"))
+            == sorted(p.relative_to(REPO / "obia")
+                      for p in (REPO / "obia").rglob("*.py")))
     assert not bad, bad
