@@ -1,0 +1,10 @@
+"""Host polygonisation, on its own thread (host clock): the mean milliseconds a scene spent in the
+program's telemetry stage ``segment.polygonize``, over the traced run's scenes with the
+telemetry on (each stage then waits for the card at its ends)."""
+
+
+def read(ctx):
+    rec = ctx["stages"].get("segment.polygonize")
+    if not rec or not ctx["stage_scenes"]:
+        return None
+    return 1000.0 * rec["total_s"] / ctx["stage_scenes"]
