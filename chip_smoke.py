@@ -677,6 +677,19 @@ def qs_bound(x, radius: int, max_dist=None) -> dict:
             "bound_term": term, "pairs": pairs}
 
 
+def stage_report() -> dict:
+    """The telemetry's report of stages, without its counters."""
+    from obia_tpu_torch import telemetry
+    return {k: v for k, v in telemetry.report().items() if "total_s" in v}
+
+
+def launch_count(key: str) -> int:
+    """The launches of the kernel ``key`` (a key of the bench's
+    ``launches``) in this process, from the telemetry's counters."""
+    from obia_tpu_torch import telemetry
+    return telemetry.counters().get(tbench.LAUNCH_COUNTERS[key], 0)
+
+
 def compare_hist(args, what: str) -> int:
     """glcm_spanner_hist against its twin on one call, with its tables and
     without them (as the main path calls it), and two kernel runs against
@@ -685,14 +698,13 @@ def compare_hist(args, what: str) -> int:
     import torch
 
     from obia_tpu_torch.ops import glcm_kernel
-    before = glcm_kernel.hist_launches
+    before = launch_count("glcm_hist")
     got, got_sq = glcm_kernel.glcm_spanner_hist(*args)
     again, again_sq = glcm_kernel.glcm_spanner_hist(*args)
     none, main_sq = glcm_kernel.glcm_spanner_hist(*args, tables=False)
     want, want_sq = glcm_kernel.glcm_spanner_hist_reference(*args)
     torch.cuda.synchronize()
-    calls = glcm_kernel.hist_launches - before
-    glcm_kernel.hist_launches = before  # comparison launches do not count
+    calls = launch_count("glcm_hist") - before
     work = args[3]
     M = work.ids.numel()
     err = (max(int((got.long() - want.long()).abs().max()),
@@ -718,11 +730,10 @@ def hist_times(mesh_labels, image_sh, K, args) -> dict:
     tables stored, at L = 16 and 255, with every box emptied (launch,
     table zeroing and the epilogue, no walk), and the twin. Every kernel
     result is held to the twin first. Returns the glcm_hist JSON entry's
-    numbers; the launches here are not counted."""
+    numbers; no launch count read elsewhere includes these launches."""
     import torch
 
     from obia_tpu_torch.ops import glcm_kernel
-    before = glcm_kernel.hist_launches
     work = args[3]
     empty = work.pieces.clone()
     empty[:, 1], empty[:, 2] = 1, 0  # rmin > rmax: a box with no pixel
@@ -753,7 +764,6 @@ def hist_times(mesh_labels, image_sh, K, args) -> dict:
         "ms_l16": by_level[16], "ms_l255": by_level[255],
         "ms_no_walk": time_ms(lambda: glcm_kernel.glcm_spanner_hist(
             *no_walk, tables=False), 10, queued=True)}
-    glcm_kernel.hist_launches = before
     b = work.pieces[:, 1:].long().cpu()
     px = ((b[:, 1] - b[:, 0] + 1).clamp(min=0)
           * (b[:, 3] - b[:, 2] + 1).clamp(min=0))
@@ -817,13 +827,12 @@ def compare_kernel(args, what: str) -> float:
     import torch
 
     from obia_tpu_torch.ops import glcm_kernel
-    before = glcm_kernel.launches
+    before = launch_count("glcm_sums")
     isums, hsum = glcm_kernel.glcm_sums(*args)
     isums2, hsum2 = glcm_kernel.glcm_sums(*args)
     ri, rh = glcm_kernel.glcm_sums_reference(*args)
     torch.cuda.synchronize()
-    calls = glcm_kernel.launches - before
-    glcm_kernel.launches = before  # comparison launches do not count
+    calls = launch_count("glcm_sums") - before
     d_int = int((isums - ri).abs().max()) if isums.numel() else 0
     d_h = float((hsum - rh).abs().max()) if hsum.numel() else 0.0
     rel_h = (float(((hsum - rh).abs() / rh.abs().clamp(min=1e-300)).max())
@@ -843,11 +852,10 @@ def sums_times(args, size: int, card: str):
     """``glcm_sums`` on one band's ``args`` from a size^2 scene: held to
     its twin (:func:`compare_kernel`), then the kernel (10 calls) and the
     twin (3) timed with CUDA events, its bounds, and its kernels' split;
-    none of these launches counts. Returns (max abs error, ms, plain ms,
-    bound ms, bound ms with the band in place)."""
+    no launch count read elsewhere includes these launches. Returns (max
+    abs error, ms, plain ms, bound ms, bound ms with the band in place)."""
     from obia_tpu_torch.ops import glcm_kernel
     err = compare_kernel(args, f"{size}^2 scene band {args[2]}")
-    before = glcm_kernel.launches
     ms = time_ms(lambda: glcm_kernel.glcm_sums(*args), 10)
     plain_ms = time_ms(lambda: glcm_kernel.glcm_sums_reference(*args), 3)
     bound, bound_l = sums_bound_ms([args]), sums_bound_ms([args], True)
@@ -855,7 +863,6 @@ def sums_times(args, size: int, card: str):
         f"{ms:.3f} ms, plain torch {plain_ms:.3f} ms, bound {bound:.4f} ms "
         f"(band in place: {bound_l:.4f} ms) ({card})")
     kernel_split(lambda: glcm_kernel.glcm_sums(*args), "GLCM sums kernels")
-    glcm_kernel.launches = before
     return err, ms, plain_ms, bound, bound_l
 
 
@@ -1129,7 +1136,7 @@ def config3_phase(size: int, root: str, card: str) -> None:
     out_dir = os.path.join(root, "out")
     out, secs = run_config3(raster, out_dir, "cuda")
     launches = tbench.kernel_launches()
-    split = telemetry.report()
+    split = stage_report()
     n = len(out)
     log(f"config 3 {size}^2 RGB ({C3_KW}): {n} segments, {secs:.3f} s, "
         f"{mp / secs:.4f} MP/s ({card}); hand-kernel launches {launches} "
@@ -1166,7 +1173,6 @@ def config3_objects(layer, raster: str, device: str):
 
     from obia_tpu_torch import telemetry
     from obia_tpu_torch.handlers.geotif import open_geotiff
-    from obia_tpu_torch.ops import glcm_kernel
     from obia_tpu_torch.segmentation.segment_statistics import create_objects
     image = open_geotiff(raster)
     telemetry.reset()
@@ -1182,10 +1188,11 @@ def config3_objects(layer, raster: str, device: str):
         telemetry.enable(False)
     log(f"  create_objects on the {len(layer)}-row layer ({device}, "
         f"rasterised): {seconds:.3f} s, glcm_sums launches "
-        f"{glcm_kernel.launches}; " + ", ".join(
+        f"{tbench.kernel_launches()['glcm_sums']}; " + ", ".join(
             f"{k} {1000 * v['total_s']:.1f} ms"
-            for k, v in telemetry.report().items()))
-    if torch.device(device).type == "cuda" and glcm_kernel.launches < 1:
+            for k, v in stage_report().items()))
+    if torch.device(device).type == "cuda" \
+            and tbench.kernel_launches()["glcm_sums"] < 1:
         raise AssertionError("config 3 features launched no glcm_sums")
     return objs
 
@@ -1379,7 +1386,7 @@ def canopy_phase(size: int, root: str, seed: int, card: str) -> None:
         f"{len(table)} in {len(set(table['cluster']))} clusters; cold "
         f"{cold:.3f} s, warm {warm:.3f} s, profiled {profiled_s:.3f} s; "
         f"peak device memory {peak / 2**30:.2f} GiB ({card})")
-    for name, r in sorted(telemetry.report().items()):
+    for name, r in sorted(stage_report().items()):
         log(f"  stage {name}: {1000 * r['total_s']:.1f} ms in {r['count']} "
             f"calls")
     if not 15000 <= n <= 25000:
@@ -1523,7 +1530,6 @@ def objects_phase(image, s, card: str, seed: int) -> int:
     import torch
 
     from obia_tpu_torch import telemetry
-    from obia_tpu_torch.ops import glcm_kernel
     from obia_tpu_torch.ops.pointcloud import segment_pointcloud_stats
     from obia_tpu_torch.segmentation.segment_statistics import create_objects
     full = s.table
@@ -1540,7 +1546,7 @@ def objects_phase(image, s, card: str, seed: int) -> int:
         reset_launches()
         with telemetry.trace(tdir):
             out, warm = featurise()
-        launches = glcm_kernel.launches
+        launches = tbench.kernel_launches()["glcm_sums"]
         busy = trace_kernels(tdir)
     sums_us = sum(v for k, v in busy.items()
                   if "glcm_small_kernel" in k or "glcm_large_kernel" in k)
@@ -1571,7 +1577,7 @@ def objects_phase(image, s, card: str, seed: int) -> int:
         telemetry.enable(False)
     log("  synced stages: " + ", ".join(
         f"{k} {1000 * v['total_s']:.1f} ms"
-        for k, v in telemetry.report().items()))
+        for k, v in stage_report().items()))
 
     pc = ql2_cloud(SIZE, N_POINTS, seed)
     kw = dict(calculate_structural=True, calculate_radiometric=True,
@@ -1950,7 +1956,7 @@ def detection_phase(root: str, card: str, seed: int):
         check_boxes(res, DET_SCENE)
         log(f"  predict, score >= {thr}, stages synced: {synced:.3f} s: "
             + ", ".join(f"{k} {1000 * v['total_s']:.1f} ms"
-                        for k, v in telemetry.report().items())
+                        for k, v in stage_report().items())
             + f"; {len(res['boxes'])} boxes")
 
     from obia_tpu_torch.detection.predict import scale_to_uint8
@@ -2169,7 +2175,6 @@ def qs_compare(x, radius: int, k: float, md: float, noise, what: str):
 
     from obia_tpu_torch.ops import quickshift_kernel as qk
     from obia_tpu_torch.ops.quickshift import flatten_tree
-    before = dict(qk.launches)
     rho_k = qk.quickshift_density(x, radius, k)
     rho_t = qk.quickshift_density_reference(x, radius, k)
     rn_t = rho_t + noise
@@ -2180,7 +2185,6 @@ def qs_compare(x, radius: int, k: float, md: float, noise, what: str):
                                                md)[1])[0]
     root_t = flatten_tree(off_t)[0]
     torch.cuda.synchronize()
-    qk.launches.update(before)  # comparison launches do not count
     d_rho = float((rho_k - rho_t).abs().max())
     rel = float(((rho_k - rho_t).abs() / rho_t.abs()).max())
     same_d2 = torch.equal(d2_k, d2_t)
@@ -2230,12 +2234,10 @@ def qs_time(x, noise, what: str, n: int):
     k, md, r = QS_KW["kernel_size"], QS_KW["max_dist"], 15
     errs = qs_compare(x, r, k, md, noise, what)
     rn = qk.quickshift_density_reference(x, r, k) + noise
-    before = dict(qk.launches)
     t = (time_ms(lambda: qk.quickshift_density(x, r, k), n),
          time_ms(lambda: qk.quickshift_density_reference(x, r, k), 1),
          time_ms(lambda: qk.quickshift_parent(x, rn, r, md), n),
          time_ms(lambda: qk.quickshift_parent_reference(x, rn, r, md), 1))
-    qk.launches.update(before)
     log(f"  {what}: density kernel {t[0]:.3f} ms, twin {t[1]:.3f} ms; "
         f"parent kernel {t[2]:.3f} ms, twin {t[3]:.3f} ms")
     return errs[0], errs[1], *t
@@ -2295,7 +2297,7 @@ def profiled(run, image, what: str):
     finally:
         telemetry.enable(False)
     log(f"{what} (device synced at every stage): {out[2]:.3f} s")
-    for name, r in telemetry.report().items():
+    for name, r in stage_report().items():
         peak = (f", peak {r['peak_bytes'] / 2 ** 30:.2f} GiB"
                 if "peak_bytes" in r else "")
         log(f"  stage {name}: {1000 * r['total_s']:.1f} ms{peak}")
@@ -2718,22 +2720,27 @@ def check_north_star(labels, K: int, pixels: np.ndarray, table, proba,
 
 def north_star_runs(run, image, what: str):
     """One path of phase 26: ``run`` cold, then warm with the card's peak
-    memory (reset before each run) and the kernels' launches, then a
-    profiled warm run (each stage synced, with its peak memory). Logs the
-    walls, K, both peaks and the host's peak RSS; returns (cold result,
+    memory (reset before each run), the kernels' launches and the CCL
+    sweeps (the telemetry's counters), then a profiled warm run (each
+    stage synced, with its peak memory). Logs the walls, K, both peaks,
+    the sweeps and the host's peak RSS; returns (cold result,
     warm result, warm peak bytes, the warm run's launches, the warm run's
     probabilities or None)."""
     import resource
 
     import torch
+
+    from obia_tpu_torch import telemetry
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     cold = run(image, "cuda")
     cold_peak = torch.cuda.max_memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
+    sweeps = telemetry.counters().get("ccl.sweeps", 0)
     warm = run(image, "cuda")
     launches = tbench.kernel_launches()
+    sweeps = telemetry.counters().get("ccl.sweeps", 0) - sweeps
     peak = torch.cuda.max_memory_allocated()
     rss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2 ** 20
     H, W = image.img_data.shape[:2]
@@ -2741,7 +2748,7 @@ def north_star_runs(run, image, what: str):
         f"warm {warm[2]:.3f} s ({H * W / 1e6 / warm[2]:.3f} MP/s);"
         f" peak device memory {cold_peak / 2 ** 30:.2f} GiB cold, "
         f"{peak / 2 ** 30:.2f} GiB warm; host peak RSS {rss:.2f} GiB; "
-        f"launches {launches} ({card_line()})")
+        f"launches {launches}; CCL sweeps {sweeps} ({card_line()})")
     profiled(run, image, f"{what}, profiled warm run")
     return cold[0], warm[0], peak, launches, warm[1]
 
@@ -2798,13 +2805,11 @@ def north_star_slice(image, card: str) -> dict:
     Returns the glcm_sums numbers for the kernels line."""
     import torch
 
-    from obia_tpu_torch.ops import connectivity
     what = f"phase 26, path 1: config 4 at {NS_SIZE}^2 x {BANDS}"
     cold, s, peak, launches, proba = north_star_runs(run_slice, image, what)
     K = len(s.table)
     log(f"  K = {K}; the JAX package's {NS_JAX_OBJECTS} on this scene "
-        f"(BASELINE.md, a TPU run): {100 * (K / NS_JAX_OBJECTS - 1):+.2f}%;"
-        f" CCL sweeps {connectivity.iterations}")
+        f"(BASELINE.md, a TPU run): {100 * (K / NS_JAX_OBJECTS - 1):+.2f}%")
     labels = s.layer.labels_dev
     check_north_star(labels, K, pixel_counts(s.table.geometry,
                                              s.layer.transform),
@@ -2862,12 +2867,10 @@ def north_star_mosaic(image, card: str) -> dict:
                                 image.device_tensor("cuda"))[0]
     args = shard_calls(lay.shards.mesh, img_sh, lay.shards, K, 256, 0)[1]
     err = compare_hist(args, f"{NS_SIZE}^2 mosaic band 0")
-    before = glcm_kernel.hist_launches
     ms = time_ms(lambda: glcm_kernel.glcm_spanner_hist(*args, tables=False),
                  10, queued=True)
     plain_ms = time_ms(
         lambda: glcm_kernel.glcm_spanner_hist_reference(*args), 3)
-    glcm_kernel.hist_launches = before
     bound = hist_bound_ms(args)
     log(f"GLCM spanner histogram, one band at {NS_SIZE}^2 ({args[3].ids.numel()}"
         f" spanners, {args[3].pieces.shape[0]} pieces), as the main path "
@@ -3242,9 +3245,9 @@ def main() -> None:
     image = as_image(config4_scene(SIZE))
     mp = SIZE * SIZE / 1e6
     s_cold, _, cold = run_slice(image, "cuda")
-    glcm_kernel.launches = 0
+    reset_launches()
     s, proba, warm = run_slice(image, "cuda")
-    launches = glcm_kernel.launches
+    launches = tbench.kernel_launches()["glcm_sums"]
     n_obj = len(s.table)
     rle_cold, rle_warm = s_cold.layer.label_raster, s.layer.label_raster
     same_runs = (np.array_equal(rle_cold.values, rle_warm.values)
@@ -3310,11 +3313,11 @@ def main() -> None:
     image2 = as_image(build_scene(h=QS_SIZE, w=QS_SIZE))
     mp2 = QS_SIZE * QS_SIZE / 1e6
     s2_cold, _, cold2 = profiled(run_config2, image2, "cold run")
-    glcm_kernel.launches = 0
-    qk.launches.update(qs_density=0, qs_parent=0)
+    reset_launches()
     s2, proba2, warm2 = run_config2(image2, "cuda")
-    qs_launches = dict(qk.launches)
-    glcm2 = glcm_kernel.launches
+    counted = tbench.kernel_launches()
+    qs_launches = {k: counted[k] for k in ("qs_density", "qs_parent")}
+    glcm2 = counted["glcm_sums"]
     n2 = len(s2.table)
     same2 = np.array_equal(s2_cold.label_raster, s2.label_raster)
     log(f"cold and warm label rasters identical: {same2}")
@@ -3379,10 +3382,10 @@ def main() -> None:
     image5 = as_image(build_scene(h=C5_SIZE, w=C5_SIZE))
     mp5 = C5_SIZE * C5_SIZE / 1e6
     r5_cold, _, cold5 = run_config5(image5, "cuda")
-    glcm_kernel.launches = 0
-    glcm_kernel.hist_launches = 0
+    reset_launches()
     r5, _, warm5 = run_config5(image5, "cuda")
-    sums5, hist5 = glcm_kernel.launches, glcm_kernel.hist_launches
+    counted = tbench.kernel_launches()
+    sums5, hist5 = counted["glcm_sums"], counted["glcm_hist"]
     n5 = len(r5.table)
     lab5 = r5.layer.shards
     n_span, _ = count_shard_spanning(lab5.mesh, lab5, n5)
@@ -3408,20 +3411,16 @@ def main() -> None:
     profiled(run_config5, image5, "config 5 profiled warm run")
     hist_err = max(hist_err, compare_hist(
         hist5_args, f"config 5 {C5_SIZE}^2 band 0"))
-    before = glcm_kernel.hist_launches
     h = hist_times(lab5, img5_sh, n5, hist5_args)
     kernel_split(lambda: glcm_kernel.glcm_spanner_hist(*hist5_args,
                                                        tables=False),
                  "GLCM spanner histogram kernel")
-    glcm_kernel.hist_launches = before
     for i, a in enumerate(sums5_calls):
         err = max(err, compare_kernel(a, f"config 5 shard {i} band 0"))
-    before = glcm_kernel.launches
     s5_ms = time_ms(lambda: [glcm_kernel.glcm_sums(*a)
                              for a in sums5_calls], 10)
     s5_plain = time_ms(lambda: [glcm_kernel.glcm_sums_reference(*a)
                                 for a in sums5_calls], 3)
-    glcm_kernel.launches = before
     bound5 = sums_bound_ms(sums5_calls)
     bound5_l = sums_bound_ms(sums5_calls, True)
     log(f"GLCM sums, one band of config 5 ({len(sums5_calls)} launches, "
@@ -3430,7 +3429,6 @@ def main() -> None:
         f"({card})")
     kernel_split(lambda: [glcm_kernel.glcm_sums(*a) for a in sums5_calls],
                  "GLCM sums kernels, 8 launches")
-    glcm_kernel.launches = before
 
     # -- 12. sharded vs single-device on the card --------------------------
     sharded_vs_single(r5, image5)

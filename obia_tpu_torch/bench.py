@@ -313,22 +313,32 @@ def device_label(device) -> str:
     return card_line() if torch.device(device).type == "cuda" else "cpu"
 
 
+# each hand-written kernel's launch counter in the telemetry, by the key
+# the rows print
+LAUNCH_COUNTERS = {"glcm_sums": "kernel.glcm_sums",
+                   "glcm_hist": "kernel.glcm_hist",
+                   "qs_density": "kernel.qs_density",
+                   "qs_parent": "kernel.qs_parent"}
+_launches_at_reset: dict = {}
+
+
 def reset_launches() -> None:
-    """Every kernel wrapper's launch count to 0."""
-    from .ops import glcm_kernel
-    from .ops import quickshift_kernel as qk
-    glcm_kernel.launches = glcm_kernel.hist_launches = 0
-    qk.launches.update(qs_density=0, qs_parent=0)
+    """Count every kernel's launches from here on (:func:`kernel_launches`
+    reads them)."""
+    from . import telemetry
+    _launches_at_reset.clear()
+    _launches_at_reset.update(telemetry.counters())
 
 
 def kernel_launches() -> dict:
-    """Each hand-written kernel's launches since :func:`reset_launches`
-    (a wrapper counts only when it launches its kernel, never its plain
-    version on the CPU)."""
-    from .ops import glcm_kernel
-    from .ops import quickshift_kernel as qk
-    return {"glcm_sums": glcm_kernel.launches,
-            "glcm_hist": glcm_kernel.hist_launches, **qk.launches}
+    """Each hand-written kernel's launches since :func:`reset_launches`,
+    read from the telemetry's counters (a wrapper counts only when it
+    launches its kernel, never its plain version on the CPU; a
+    ``telemetry.reset()`` after :func:`reset_launches` voids the reading)."""
+    from . import telemetry
+    now = telemetry.counters()
+    return {key: now.get(name, 0) - _launches_at_reset.get(name, 0)
+            for key, name in LAUNCH_COUNTERS.items()}
 
 
 def _timed(fn, runs=None):

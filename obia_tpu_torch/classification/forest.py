@@ -14,6 +14,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import telemetry
 from ..device import resolve_device
 
 
@@ -91,6 +92,7 @@ def forest_from_jax(arrays, device=None) -> ForestArrays:
                                    arrays.max_depth, device)
 
 
+@telemetry.timed("forest.predict")
 def forest_proba(forest: ForestArrays, X: torch.Tensor) -> torch.Tensor:
     """(B, F) features -> (B, C) mean leaf distribution over the trees.
     Level-synchronous: each step moves every (object, tree) pair one level

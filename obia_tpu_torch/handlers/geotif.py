@@ -18,6 +18,7 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
+from .. import telemetry
 from ..geometry.affine import Affine
 from ..geometry.crs import CRS
 from ..io.tiff import TiffReader, write_tiff
@@ -49,8 +50,9 @@ class Image:
                    and self._raw.dtype.itemsize < 4
                    and self._raw.shape == self.img_data.shape
                    else self.img_data)
-            t = torch.from_numpy(np.ascontiguousarray(src)).to(device)
-            t = t.to(torch.float32)
+            with telemetry.stage("image.upload"):
+                t = torch.from_numpy(np.ascontiguousarray(src)).to(device)
+                t = t.to(torch.float32)
             self._device_cache[device] = t
         return t
 
@@ -114,7 +116,9 @@ def as_image(image) -> Image:
     package's ``Image`` (its array is shared, not copied)."""
     if isinstance(image, Image):
         return image
-    return Image(np.asarray(image.img_data, np.float32), _as_crs(image.crs),
+    with telemetry.stage("image.convert", host_only=True):
+        data = np.asarray(image.img_data, np.float32)
+    return Image(data, _as_crs(image.crs),
                  list(image.affine_transformation), image.transform,
                  nodata=getattr(image, "nodata", None))
 
@@ -143,7 +147,9 @@ def open_geotiff(image_path: str, bands: Optional[List[int]] = None) -> Image:
                              f"1-based, 1..{reader.spp}")
     raw = np.ascontiguousarray(full[:, :, [b - 1 for b in bands]])
     t = reader.transform
-    return Image(raw.astype(np.float32), reader.crs,
+    with telemetry.stage("image.convert", host_only=True):
+        data = raw.astype(np.float32)
+    return Image(data, reader.crs,
                  [t.a, t.b, t.d, t.e, t.c, t.f], t, reader,
                  nodata=reader.nodata, raw_data=raw)
 
@@ -181,10 +187,12 @@ def image_from_array(img_data: np.ndarray, transform: Affine, crs=None,
     """An in-memory :class:`Image` (no file backing)."""
     if img_data.ndim == 2:
         img_data = img_data[:, :, None]
-    raw = (np.ascontiguousarray(img_data)
-           if np.asarray(img_data).dtype.itemsize < 4 else None)
+    with telemetry.stage("image.convert", host_only=True):
+        raw = (np.ascontiguousarray(img_data)
+               if np.asarray(img_data).dtype.itemsize < 4 else None)
+        data = np.asarray(img_data, dtype=np.float32)
     crs_obj = _as_crs(crs)
     t = transform
-    return Image(np.asarray(img_data, dtype=np.float32), crs_obj,
+    return Image(data, crs_obj,
                  [t.a, t.b, t.d, t.e, t.c, t.f], t, nodata=nodata,
                  raw_data=raw)

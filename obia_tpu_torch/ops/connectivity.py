@@ -13,6 +13,9 @@
   sub-minimum orphan survives), then a dense re-compaction. The sweeps are
   integer min-reductions, so the result is the same whatever order the
   atomics run in.
+
+Each propagation sweep and each adoption sweep ends in a host sync; the
+telemetry counts them as ``ccl.sweeps`` and ``merge.sweeps``.
 """
 from __future__ import annotations
 
@@ -20,7 +23,7 @@ from typing import Tuple
 
 import torch
 
-iterations = 0  # propagation sweeps of the last ccl_roots call
+from .. import telemetry
 
 
 def _same_masks(labels: torch.Tensor):
@@ -45,10 +48,8 @@ def ccl_roots(labels: torch.Tensor) -> torch.Tensor:
     idx = torch.arange(N, dtype=torch.int64, device=dev)
     comp = torch.where(valid, idx, N)       # N = +inf, never a valid root
     vidx = idx[valid]
-    global iterations
-    iterations = 0
     while True:
-        iterations += 1
+        telemetry.count("ccl.sweeps")  # each sweep ends in a host sync
         c2 = comp.view(H, W)
         m = c2.clone()                      # min over self + same neighbours
         m[:, 1:] = torch.minimum(m[:, 1:], torch.where(
@@ -143,6 +144,7 @@ def _merge_lut_loop(ea, eb, sizes0, min_size: int, max_size: int, K: int,
         for _ in range(max_iters):
             lut, changed = _sweep(ea, eb, lut, sizes0, min_size, max_size,
                                   K, capped)
+            telemetry.count("merge.sweeps")  # each ends in a host sync
             if not changed:
                 break
         return lut

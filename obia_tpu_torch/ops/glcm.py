@@ -23,6 +23,7 @@ from typing import Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import telemetry
 from ..device import input_device
 from .glcm_kernel import glcm_sums
 
@@ -155,8 +156,9 @@ def segment_glcm_props_packed(image: torch.Tensor, labels: torch.Tensor,
         range(image.shape[2]))
     K = int(num_segments)
     offsets = angle_offsets(distance, tuple(angles))
-    mins = bbox_minmax(image, labels, K, band_ids)
-    bboxes = _bboxes_from_mins(mins)
+    with telemetry.stage("glcm.prepass"):
+        mins = bbox_minmax(image, labels, K, band_ids)
+        bboxes = _bboxes_from_mins(mins)
     outs = []
     for i, b in enumerate(band_ids):
         mn = mins[:, 4 + 2 * i].contiguous()

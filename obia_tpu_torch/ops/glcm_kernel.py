@@ -39,8 +39,8 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
-launches = 0  # glcm_sums kernel calls in this process; twins never count
-hist_launches = 0  # glcm_spanner_hist kernel launches in this process
+from .. import telemetry
+
 _SUMSQ_CHUNK = 64  # tables the twin squares at a time
 # the most pixels of an object's box (clipped to the raster) that the
 # warp-per-object kernel sums; larger boxes go to the block-per-item kernel.
@@ -112,8 +112,7 @@ def glcm_sums(labels: torch.Tensor, image: torch.Tensor, band: int,
             stream)
     if status != 0:
         raise RuntimeError(f"GLCM kernel launch failed: CUDA error {status}")
-    global launches
-    launches += 1
+    telemetry.count("kernel.glcm_sums")  # the twin never counts
     return isums, hsum
 
 
@@ -328,8 +327,7 @@ def glcm_spanner_hist(labels: Sequence[torch.Tensor],
     if status != 0:
         raise RuntimeError(f"GLCM spanner histogram kernel launch failed: "
                            f"CUDA error {status}")
-    global hist_launches
-    hist_launches += 1
+    telemetry.count("kernel.glcm_hist")
     return out, sumsq
 
 

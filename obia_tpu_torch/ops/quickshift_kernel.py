@@ -38,8 +38,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-# kernel launches in this process, by kernel; the twins never count
-launches = {"qs_density": 0, "qs_parent": 0}
+from .. import telemetry
 
 STRIP = 5                         # pixels a thread (QS_P in the kernel)
 LANES = (32, 16, 8, 4)            # threads along a tile row (blockDim.x)
@@ -184,7 +183,7 @@ def quickshift_density(img: torch.Tensor, radius: int,
     if status != 0:
         raise RuntimeError(f"quickshift density kernel launch failed: CUDA "
                            f"error {status}")
-    launches["qs_density"] += 1
+    telemetry.count("kernel.qs_density")  # the twin never counts
     return rho
 
 
@@ -218,7 +217,7 @@ def quickshift_parent(img: torch.Tensor, rho: torch.Tensor, radius: int,
     if status != 0:
         raise RuntimeError(f"quickshift parent kernel launch failed: CUDA "
                            f"error {status}")
-    launches["qs_parent"] += 1
+    telemetry.count("kernel.qs_parent")
     return best_d2, doff
 
 

@@ -10,6 +10,7 @@ featurisation. The result is a pandas-free :class:`SegmentLayer`.
 """
 from __future__ import annotations
 
+import contextvars
 from concurrent.futures import Future, ThreadPoolExecutor
 from typing import List, Sequence
 
@@ -84,7 +85,8 @@ class SegmentLayer:
     def geometry(self) -> List:
         """One geometry per segment; joins a pending polygonisation."""
         if isinstance(self._geometry, Future):
-            self._geometry = self._geometry.result()
+            with telemetry.stage("segment.join", host_only=True):
+                self._geometry = self._geometry.result()
         return self._geometry
 
     def to_file(self, path: str, layer: str = "segments") -> None:
@@ -195,7 +197,8 @@ def layer_from_labels(labels: torch.Tensor, n_labels: int, image,
 
     if async_polygonize:
         ex = ThreadPoolExecutor(max_workers=1)
-        geometry = ex.submit(polygonize)
+        # in a copy of this context, so its span's parent is the caller's
+        geometry = ex.submit(contextvars.copy_context().run, polygonize)
         ex.shutdown(wait=False)
     else:
         geometry = polygonize()

@@ -318,3 +318,36 @@ def test_detection_keys_are_the_tools():
     inner = rows[0].values[0]
     assert tuple(k.value for k in inner.keys) == \
         chip_smoke.TOOL_DETECTION_KEYS
+
+
+def test_north_star_runs_logs_the_warm_runs_sweeps(monkeypatch, capsys):
+    """Phase 26's runs on the CPU at 64^2 (the card's memory calls and the
+    profiled rerun stubbed): the log line carries the CCL sweeps of the
+    warm run alone, read from the telemetry's counters."""
+    import torch
+
+    from obia_tpu_torch import telemetry
+    for name in ("empty_cache", "reset_peak_memory_stats"):
+        monkeypatch.setattr(torch.cuda, name, lambda: None)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda: 0)
+    monkeypatch.setattr(chip_smoke, "profiled", lambda *a: None)
+    monkeypatch.setattr(chip_smoke, "card_line", lambda: "cpu")
+    image = chip_smoke.as_image(chip_smoke.config4_scene(64))
+    warm_sweeps = []
+
+    def run(image, device):
+        before = telemetry.counters().get("ccl.sweeps", 0)
+        out = chip_smoke.run_slice(image, "cpu")
+        warm_sweeps.append(telemetry.counters().get("ccl.sweeps", 0)
+                           - before)
+        return out
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        chip_smoke.north_star_runs(run, image, "64^2")
+    finally:
+        torch.set_num_threads(threads)
+    line = capsys.readouterr().out
+    assert warm_sweeps[1] >= 1
+    assert f"; CCL sweeps {warm_sweeps[1]} (cpu)" in line

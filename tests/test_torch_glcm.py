@@ -21,8 +21,16 @@ import numpy as np
 import pytest
 import torch
 
+from obia_tpu_torch import telemetry
 from obia_tpu_torch.ops import glcm as tg
 from obia_tpu_torch.ops import glcm_kernel
+
+
+def sums_launches() -> int:
+    """``glcm_sums`` kernel launches in this process (a telemetry
+    counter)."""
+    return telemetry.counters().get("kernel.glcm_sums", 0)
+
 
 OFFSETS = tg.angle_offsets(2, tg.DEFAULT_ANGLES)
 
@@ -191,10 +199,10 @@ def test_compute_asm_off_gives_nan_asm_energy():
 def test_cpu_tensors_take_the_twin_and_count_no_launch():
     img, lab, K = edge_case_scene()
     args = _inputs(img, lab, K, 1)
-    before = glcm_kernel.launches
+    before = sums_launches()
     got = glcm_kernel.glcm_sums(*args)
     want = glcm_kernel.glcm_sums_reference(*args)
-    assert glcm_kernel.launches == before
+    assert sums_launches() == before
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
@@ -264,10 +272,10 @@ def test_cuda_kernel_matches_twin(cuda_device, scene):
     for band in range(img.shape[2]):
         args = [a.to(cuda_device) if torch.is_tensor(a) else a
                 for a in _inputs(img, lab, K, band)]
-        before = glcm_kernel.launches
+        before = sums_launches()
         isums, hsum = glcm_kernel.glcm_sums(*args)
         torch.cuda.synchronize()
-        assert glcm_kernel.launches == before + 1
+        assert sums_launches() == before + 1
         want_i, want_h = glcm_kernel.glcm_sums_reference(*args)
         assert torch.equal(isums, want_i)
         torch.testing.assert_close(hsum, want_h, rtol=1e-6, atol=0)
@@ -368,11 +376,11 @@ def test_cuda_kernel_size_classes_match_twin(cuda_device, scene, levels):
     sum 1/(1+d^2) within rtol 1e-6, two runs identical, one launch a
     call."""
     args = _scene_inputs(*KERNEL_SCENES[scene](), levels, cuda_device)
-    before = glcm_kernel.launches
+    before = sums_launches()
     isums, hsum = glcm_kernel.glcm_sums(*args)
     again = glcm_kernel.glcm_sums(*args)
     torch.cuda.synchronize()
-    assert glcm_kernel.launches == before + 2
+    assert sums_launches() == before + 2
     want_i, want_h = glcm_kernel.glcm_sums_reference(*args)
     assert torch.equal(isums, want_i)
     torch.testing.assert_close(hsum, want_h, rtol=1e-6, atol=0)

@@ -21,10 +21,18 @@ import numpy as np
 import pytest
 import torch
 
+from obia_tpu_torch import telemetry
 from obia_tpu_torch.ops import glcm as tg
 from obia_tpu_torch.ops import glcm_kernel
 from obia_tpu_torch.parallel import glcm_sharded as tgs
 from obia_tpu_torch.parallel import mesh as tmesh
+
+
+def hist_launches() -> int:
+    """``glcm_spanner_hist`` kernel launches in this process (a telemetry
+    counter)."""
+    return telemetry.counters().get("kernel.glcm_hist", 0)
+
 
 OFFSETS = tg.angle_offsets(2, tg.DEFAULT_ANGLES)
 H, W = 32, 48          # 16 x 12 shards on the 2 x 4 mesh
@@ -411,12 +419,12 @@ def test_sharded_prepass_equals_whole_raster(mesh):
 
 def test_compute_asm_off_skips_the_histogram(mesh):
     img, lab, K = seam_scene()
-    before = glcm_kernel.hist_launches
+    before = hist_launches()
     got = tgs.sharded_glcm_props(mesh, *_sharded(mesh, img, lab), K,
                                  levels=16, compute_asm=False)
     assert np.isnan(got["ASM"]).all() and np.isnan(got["energy"]).all()
     assert np.isfinite(got["contrast"][:5]).all()
-    assert glcm_kernel.hist_launches == before
+    assert hist_launches() == before
 
 
 def test_cpu_tensors_take_the_twin_and_count_no_launch(mesh):
@@ -424,14 +432,14 @@ def test_cpu_tensors_take_the_twin_and_count_no_launch(mesh):
     mn, inv, _, (labs, imgs, work) = _port_shard_inputs(mesh, img, lab, K,
                                                         16, 0)
     M, A = work.ids.numel(), len(OFFSETS)
-    before = glcm_kernel.hist_launches
+    before = hist_launches()
     got, got_sq = glcm_kernel.glcm_spanner_hist(labs, imgs, 0, work, mn, inv,
                                                 16, OFFSETS)
     none, sums_only = glcm_kernel.glcm_spanner_hist(
         labs, imgs, 0, work, mn, inv, 16, OFFSETS, tables=False)
     want, want_sq = glcm_kernel.glcm_spanner_hist_reference(
         labs, imgs, 0, work, mn, inv, 16, OFFSETS)
-    assert glcm_kernel.hist_launches == before
+    assert hist_launches() == before
     assert got.dtype == torch.int32 and torch.equal(got, want)
     assert got_sq.dtype == torch.int64 and torch.equal(got_sq, want_sq)
     assert got.shape == (M, 16, A * 16) and got_sq.shape == (A, M)
@@ -493,7 +501,7 @@ def test_cuda_hist_matches_twin(cuda_device, levels):
         assert int(n_pieces.max()) == 4            # the corner spanner
         assert bool(((box[:, 0] == box[:, 1])       # a 1-pixel piece
                      & (box[:, 2] == box[:, 3])).any())
-        before = glcm_kernel.hist_launches
+        before = hist_launches()
         got, got_sq = glcm_kernel.glcm_spanner_hist(
             labs, imgs, band, work, mn, inv, levels, OFFSETS)
         again, again_sq = glcm_kernel.glcm_spanner_hist(
@@ -501,7 +509,7 @@ def test_cuda_hist_matches_twin(cuda_device, levels):
         none, sums_only = glcm_kernel.glcm_spanner_hist(
             labs, imgs, band, work, mn, inv, levels, OFFSETS, tables=False)
         torch.cuda.synchronize()
-        assert glcm_kernel.hist_launches == before + 3
+        assert hist_launches() == before + 3
         want, want_sq = glcm_kernel.glcm_spanner_hist_reference(
             labs, imgs, band, work, mn, inv, levels, OFFSETS)
         assert torch.equal(got, want), (levels, band)
@@ -579,10 +587,10 @@ def test_cuda_hist_leaves_unknown_ids_empty(cuda_device):
 def test_cuda_sharded_sums_equal_single_device(cuda_device):
     img, lab, K = seam_scene()
     cmesh = tmesh.make_mesh(8, [cuda_device])
-    before = glcm_kernel.hist_launches
+    before = hist_launches()
     per_band = tgs.sharded_glcm_sums(cmesh, *_sharded(cmesh, img, lab), K,
                                      levels=256)
-    assert glcm_kernel.hist_launches == before + len(per_band) == before + 2
+    assert hist_launches() == before + len(per_band) == before + 2
     image = torch.as_tensor(img, device=cuda_device)
     labels = torch.as_tensor(lab, device=cuda_device)
     mins = tg.bbox_minmax(image, labels, K, (0, 1))

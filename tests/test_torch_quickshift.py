@@ -18,8 +18,17 @@ import numpy as np
 import pytest
 import torch
 
+from obia_tpu_torch import telemetry
 from obia_tpu_torch.ops import quickshift as tqs
 from obia_tpu_torch.ops import quickshift_kernel as qk
+
+
+def qs_launches() -> dict:
+    """Each quickshift kernel's launches in this process (telemetry
+    counters)."""
+    n = telemetry.counters()
+    return {k: n.get(f"kernel.{k}", 0) for k in ("qs_density", "qs_parent")}
+
 
 CASES = [((64, 48, 3), 2.0, 4.0),    # several tiles, radius 6
          ((70, 300, 3), 1.0, 3.0),   # ragged edges, radius 3
@@ -171,10 +180,10 @@ def test_sigma_not_ported():
 
 def test_cpu_tensor_takes_twin_and_counts_no_launch():
     img = torch.rand((3, 20, 33), generator=torch.Generator().manual_seed(0))
-    before = dict(qk.launches)
+    before = qs_launches()
     rho = qk.quickshift_density(img, 3, 1.0)
     d2, doff = qk.quickshift_parent(img, rho, 3, 3.0)
-    assert qk.launches == before
+    assert qs_launches() == before
     assert torch.equal(rho, qk.quickshift_density_reference(img, 3, 1.0))
     want_d2, want_off = qk.quickshift_parent_reference(img, rho, 3, 3.0)
     assert torch.equal(d2, want_d2) and torch.equal(doff, want_off)
@@ -330,7 +339,7 @@ def test_cuda_kernels_match_twins(cuda_device, scene, radius):
     img = torch.tensor(edge_scenes()[scene], device=cuda_device)
     H, W = img.shape[1:]
     k = radius / 3.0
-    before = dict(qk.launches)
+    before = qs_launches()
     rho = qk.quickshift_density(img, radius, k)
     want = qk.quickshift_density_reference(img, radius, k)
     torch.testing.assert_close(rho, want, rtol=1e-6, atol=0)
@@ -340,8 +349,8 @@ def test_cuda_kernels_match_twins(cuda_device, scene, radius):
     w_d2, w_doff = qk.quickshift_parent_reference(img, rho_n, radius,
                                                   2.0 * k)
     torch.cuda.synchronize()
-    assert qk.launches["qs_density"] == before["qs_density"] + 1
-    assert qk.launches["qs_parent"] == before["qs_parent"] + 1
+    assert qs_launches()["qs_density"] == before["qs_density"] + 1
+    assert qs_launches()["qs_parent"] == before["qs_parent"] + 1
     assert torch.equal(d2, w_d2) and torch.equal(doff, w_doff)
 
 
@@ -386,7 +395,7 @@ def test_cuda_strip_kernels_match_twins(cuda_device, case, nan):
         img[0, 0, W - 1] = np.inf
     x = torch.tensor(img, device=cuda_device)
     k = r / 3.0
-    before = dict(qk.launches)
+    before = qs_launches()
     rho = qk.quickshift_density(x, r, k)
     want = qk.quickshift_density_reference(x, r, k)
     torch.testing.assert_close(rho, want, rtol=1e-6, atol=0)
@@ -395,8 +404,8 @@ def test_cuda_strip_kernels_match_twins(cuda_device, case, nan):
     d2, doff = qk.quickshift_parent(x, rho_n, r, md)
     w_d2, w_doff = qk.quickshift_parent_reference(x, rho_n, r, md)
     torch.cuda.synchronize()
-    assert qk.launches["qs_density"] == before["qs_density"] + 1
-    assert qk.launches["qs_parent"] == before["qs_parent"] + 1
+    assert qs_launches()["qs_density"] == before["qs_density"] + 1
+    assert qs_launches()["qs_parent"] == before["qs_parent"] + 1
     assert torch.equal(d2, w_d2) and torch.equal(doff, w_doff)
     if md < 1:
         assert not bool(doff.any())
