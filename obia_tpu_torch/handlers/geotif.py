@@ -1,9 +1,16 @@
 """Raster container and GeoTIFF I/O (port of ``obia_tpu/handlers/geotif.py``).
 
 ``Image.img_data`` is an (H, W, C) float32 numpy array, as in the
-reference; ``device_tensor(device)`` uploads it once per device and caches
-it. Files are read with the port's own GeoTIFF reader
-(:mod:`obia_tpu_torch.io.tiff`), which ``Image.reader`` (alias
+reference. An ``Image`` made from a narrow dtype (itemsize under 4: uint8,
+uint16, ...), as ``image_from_array`` and ``open_geotiff`` make one from a
+scene, keeps that source array and builds the float32 copy only when
+``img_data`` is first read (stage ``image.convert``, counter
+``image.widen``); ``shape``, ``height``, ``width``, ``count`` and
+``device_tensor`` never build it. Float32 data is kept as it is, any other
+dtype is copied to float32 at once. ``device_tensor(device)`` uploads the
+raster once per device (the source dtype crosses and is cast to float32 on
+the device) and caches it. Files are read with the port's own GeoTIFF
+reader (:mod:`obia_tpu_torch.io.tiff`), which ``Image.reader`` (alias
 ``rasterio_obj``, the reference's name) holds. The port's entry points also
 take any container with ``img_data``, ``crs``, ``transform`` and
 ``affine_transformation``, such as the JAX package's ``Image``.
@@ -24,35 +31,76 @@ from ..geometry.crs import CRS
 from ..io.tiff import TiffReader, write_tiff
 
 
+def _narrow(arr) -> bool:
+    """Whether ``arr`` is an array whose float32 copy would be wider."""
+    return isinstance(arr, np.ndarray) and arr.dtype.itemsize < 4
+
+
+def _resolved(device) -> torch.device:
+    """``device`` with the index it stands for: one key per device, so
+    ``cuda`` and ``cuda:0`` (``cpu`` and ``cpu:0``) share an upload."""
+    device = torch.device(device)
+    if device.type == "cpu":
+        return torch.device("cpu")
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
 class Image:
-    """Geo-referenced raster: (H, W, C) float32 data + CRS + affine."""
+    """Geo-referenced raster: (H, W, C) float32 data + CRS + affine.
+
+    ``img_data`` given in a narrow dtype is kept as the source and widened
+    to float32 on the first read of :attr:`img_data`; ``raw_data``, a
+    narrow-dtype copy of a float32 ``img_data``, is what
+    :meth:`device_tensor` uploads in its place."""
 
     def __init__(self, img_data: np.ndarray, crs, affine_transformation,
                  transform, reader=None, nodata: Optional[float] = None,
                  raw_data: Optional[np.ndarray] = None, rasterio_obj=None):
-        self.img_data = img_data
+        self._device_cache = {}
+        if _narrow(img_data):
+            self._data, self._src = None, img_data
+            telemetry.count("image.widen", 0)  # reads 0 until widened
+        else:
+            self._data = img_data
+            self._src = (raw_data if _narrow(raw_data)
+                         and raw_data.shape == np.shape(img_data) else None)
         self.crs = crs
         self.affine_transformation = affine_transformation
         self.transform = transform
         self.reader = reader if reader is not None else rasterio_obj
         self.nodata = nodata
-        self._raw = raw_data  # source-dtype copy for cheap uploads
-        self._device_cache = {}
+
+    @property
+    def img_data(self) -> np.ndarray:
+        """The (H, W, C) float32 host array; made from a narrow source on
+        the first read, then kept."""
+        if self._data is None:
+            with telemetry.stage("image.convert", host_only=True):
+                self._data = np.asarray(self._src, np.float32)
+            telemetry.count("image.widen")
+        return self._data
+
+    @img_data.setter
+    def img_data(self, value: np.ndarray) -> None:
+        self._data, self._src = value, None
+        self._device_cache.clear()
 
     def device_tensor(self, device) -> torch.Tensor:
         """The raster as a float32 (H, W, C) tensor on ``device``, uploaded
-        once and cached. A narrow source dtype (uint8, uint16) crosses to
-        the device in its own dtype and is cast there."""
-        device = torch.device(device)
+        once a device and cached. A narrow source dtype (uint8, uint16)
+        crosses to the device in its own dtype and is cast there: the
+        upload never makes the float32 host copy, which only a read of
+        :attr:`img_data` makes."""
+        device = _resolved(device)
         t = self._device_cache.get(device)
-        if t is None or tuple(t.shape) != self.img_data.shape:
-            src = (self._raw if self._raw is not None
-                   and self._raw.dtype.itemsize < 4
-                   and self._raw.shape == self.img_data.shape
-                   else self.img_data)
+        if t is None:
+            src = self._src if self._src is not None else self._data
             with telemetry.stage("image.upload"):
                 t = torch.from_numpy(np.ascontiguousarray(src)).to(device)
                 t = t.to(torch.float32)
+            telemetry.count("image.uploads")
             self._device_cache[device] = t
         return t
 
@@ -67,19 +115,20 @@ class Image:
 
     @property
     def shape(self):
-        return self.img_data.shape
+        """(H, W, C), read without building the float32 copy."""
+        return (self._src if self._data is None else self._data).shape
 
     @property
     def height(self) -> int:
-        return self.img_data.shape[0]
+        return self.shape[0]
 
     @property
     def width(self) -> int:
-        return self.img_data.shape[1]
+        return self.shape[1]
 
     @property
     def count(self) -> int:
-        return self.img_data.shape[2]
+        return self.shape[2]
 
     def to_image(self, bands: Sequence[int], p_min: int = 2, p_max: int = 98,
                  stretch_type: Optional[str] = None):
@@ -93,7 +142,7 @@ class Image:
         if not isinstance(bands, (list, tuple)) or len(bands) != 3:
             raise ValueError("'bands' should be a list or tuple of exactly "
                              "three elements")
-        num_bands = self.img_data.shape[2]
+        num_bands = self.count
         for band in bands:
             if band >= num_bands or band < 0:
                 raise IndexError(f"Band index {band} out of range. Available "
@@ -116,11 +165,19 @@ def as_image(image) -> Image:
     package's ``Image`` (its array is shared, not copied)."""
     if isinstance(image, Image):
         return image
-    with telemetry.stage("image.convert", host_only=True):
-        data = np.asarray(image.img_data, np.float32)
-    return Image(data, _as_crs(image.crs),
+    return Image(_entered(image.img_data), _as_crs(image.crs),
                  list(image.affine_transformation), image.transform,
                  nodata=getattr(image, "nodata", None))
+
+
+def _entered(arr) -> np.ndarray:
+    """What an :class:`Image` keeps of a scene's array: a narrow dtype as a
+    contiguous array of its own dtype (widened later, if ever), float32 as
+    it is, anything else as a float32 copy made now."""
+    with telemetry.stage("image.convert", host_only=True):
+        arr = np.asarray(arr)
+        return (np.ascontiguousarray(arr) if _narrow(arr)
+                else np.asarray(arr, np.float32))
 
 
 def _as_crs(crs) -> Optional[CRS]:
@@ -145,13 +202,11 @@ def open_geotiff(image_path: str, bands: Optional[List[int]] = None) -> Image:
         if not 1 <= b <= reader.spp:
             raise IndexError(f"band index {b} out of range: bands are "
                              f"1-based, 1..{reader.spp}")
-    raw = np.ascontiguousarray(full[:, :, [b - 1 for b in bands]])
+    data = _entered(full[:, :, [b - 1 for b in bands]])
     t = reader.transform
-    with telemetry.stage("image.convert", host_only=True):
-        data = raw.astype(np.float32)
     return Image(data, reader.crs,
                  [t.a, t.b, t.d, t.e, t.c, t.f], t, reader,
-                 nodata=reader.nodata, raw_data=raw)
+                 nodata=reader.nodata)
 
 
 def _write_geotiff(pil_image, output_path: str, crs, transform) -> None:
@@ -187,12 +242,7 @@ def image_from_array(img_data: np.ndarray, transform: Affine, crs=None,
     """An in-memory :class:`Image` (no file backing)."""
     if img_data.ndim == 2:
         img_data = img_data[:, :, None]
-    with telemetry.stage("image.convert", host_only=True):
-        raw = (np.ascontiguousarray(img_data)
-               if np.asarray(img_data).dtype.itemsize < 4 else None)
-        data = np.asarray(img_data, dtype=np.float32)
     crs_obj = _as_crs(crs)
     t = transform
-    return Image(data, crs_obj,
-                 [t.a, t.b, t.d, t.e, t.c, t.f], t, nodata=nodata,
-                 raw_data=raw)
+    return Image(_entered(img_data), crs_obj,
+                 [t.a, t.b, t.d, t.e, t.c, t.f], t, nodata=nodata)

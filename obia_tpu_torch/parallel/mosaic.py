@@ -124,7 +124,7 @@ def mosaic_pipeline(image, n_segments: int = 1000, compactness: float = 10.0,
 
     _one_process(mesh)
     image = as_image(image)
-    H, W, C = image.img_data.shape
+    H, W, C = image.shape
     with telemetry.stage("mosaic.normalize", H * W / 1e6):
         norm = _normalize_select(image.device_tensor(mesh.home),
                                  list(range(C)))

@@ -149,7 +149,7 @@ def create_segments(image, segmentation_bands=None, method: str = "slic",
         raise Exception("An unknown segmentation method was requested.")
     image = as_image(image)
     device = resolve_device(device)
-    H, W, num_bands = image.img_data.shape
+    H, W, num_bands = image.shape
     bands = (list(range(num_bands)) if segmentation_bands is None
              else list(segmentation_bands))
     for band in bands:

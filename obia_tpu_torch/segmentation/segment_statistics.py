@@ -442,7 +442,7 @@ def create_objects(segments, image, ept=None, ept_srs=None,
         raise NotImplementedError(
             "Point-cloud workflows are temporarily disabled. "
             "Use spectral/textural statistics only for now.")
-    num_bands = image.img_data.shape[2]
+    num_bands = image.count
     if spectral_bands is None:
         spectral_bands = list(range(num_bands))
     if textural_bands is None:
@@ -459,7 +459,7 @@ def create_objects(segments, image, ept=None, ept_srs=None,
     columns = _create_empty_stats_columns(spectral_bands, textural_bands,
                                           spectral_flags, textural_flags,
                                           pc_flags)
-    H, W = image.img_data.shape[:2]
+    H, W = image.shape[:2]
     mp = H * W / 1e6
 
     if isinstance(segments, SegmentLayer):
