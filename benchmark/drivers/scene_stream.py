@@ -5,8 +5,10 @@ polygons joined and the card synchronised.
 
 One worker takes scene after scene and finishes the scene it started. Each
 scene enters as a new ``Image`` from ``image_from_array`` on its uint8
-array, as ``open_geotiff`` hands a scene over, so the host conversion and
-the upload are paid for every scene. The scenes are made on the device in
+array, as ``open_geotiff`` hands a scene over, so every scene pays one
+upload of its uint8 array, cast on the card; the ``Image`` keeps the
+source dtype and makes no float32 copy on the host (``image_convert_ms``
+and ``image_widens`` read that). The scenes are made on the device in
 set-up (``benchmark/scenes.py``): the warm scene, run once, then the pool,
 cycled. Every completed scene's outputs are kept on the host for the check
 after the window; the check (``benchmark/reference``) runs on a sample of
@@ -38,6 +40,11 @@ def rings_of(geom) -> list:
 
 class Driver:
     """One run's scenes, window, traced run and check on ``device``."""
+
+    #: every number :meth:`check` can return
+    NUMBERS = compare.NUMBERS
+    #: the numbers every cell this driver runs is held to
+    REQUIRED = ("label_mismatch", "polygon_faults", "feature_gap")
 
     def __init__(self, config: dict, workload: dict, seed: int, device):
         self.config = config

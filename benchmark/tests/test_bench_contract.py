@@ -131,18 +131,37 @@ def test_metrics(bench):
                    for m in bench["per_layer"])
 
 
+def check_cell(cell: dict) -> None:
+    """A loaded cell (``harness.load_cell``'s form) keeps to the contract:
+    its driver is found by the configuration's name for it, and its limits
+    name only numbers that driver's ``check()`` can return, among them
+    every number the driver requires of its cells."""
+    from benchmark import harness
+    assert cell["traffic_data"]["scene"]["side"] > 0
+    D = harness.driver_class(cell["config_data"])
+    assert D.__name__
+    assert D.REQUIRED
+    assert set(D.REQUIRED) <= set(D.NUMBERS)
+    assert set(D.REQUIRED) <= set(cell["limits"]) <= set(D.NUMBERS)
+
+
 def test_every_file_found_by_name(bench):
     from benchmark import harness
     for w in bench["workloads"]:
-        cell = harness.cell(bench, w["name"])
-        assert cell["traffic_data"]["scene"]["side"] > 0
-        assert harness.driver_class(cell["config_data"]).__name__
-        from benchmark.reference.compare import NUMBERS
-        assert set(cell["limits"]) <= set(NUMBERS)
-        assert {"label_mismatch", "polygon_faults",
-                "feature_gap"} <= set(cell["limits"])
+        check_cell(harness.cell(bench, w["name"]))
     for m in bench["per_layer"]:
         assert callable(harness.metric_reader(m["name"]))
+
+
+def test_scene_stream_holds_its_cells_to_the_same_numbers():
+    """A scene-stream cell may limit any number the scene stream's
+    reference computes, and is held to the partition, its polygons and
+    its features at least."""
+    from benchmark.drivers.scene_stream import Driver
+    from benchmark.reference import compare
+    assert Driver.NUMBERS == compare.NUMBERS
+    assert set(Driver.REQUIRED) == {"label_mismatch", "polygon_faults",
+                                    "feature_gap"}
 
 
 def test_file_names_use_name_characters(bench):
