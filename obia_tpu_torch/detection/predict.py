@@ -47,7 +47,9 @@ def infer_image_array(model: DetectionModel, hwc, score_threshold: float,
     features), one forward pass in evaluation mode on the model's device,
     decode, sigmoid, best non-background class, score filter, per-class
     NMS, clip to the unpadded extent. ``hwc`` is an (H, W, C) numpy array
-    or tensor; its values are taken as float32."""
+    or tensor; its values are taken as float32. Counts the boxes that pass
+    the score filter (``detect.candidates``) and those NMS keeps
+    (``detect.kept``)."""
     dev = model.device
     model.eval()
     with torch.inference_mode():
@@ -73,6 +75,8 @@ def infer_image_array(model: DetectionModel, hwc, score_threshold: float,
             boxes = boxes[keep].cpu().numpy()
             scores = scores[keep].cpu().numpy()
             labels = labels[keep].cpu().numpy()
+    # both counters register at 0, so a raster without candidates reads 0
+    telemetry.count("detect.candidates", len(boxes))
     with telemetry.stage("detect.nms"):
         if len(boxes):
             # per-class NMS via the batched_nms offset trick: shift each
@@ -86,6 +90,7 @@ def infer_image_array(model: DetectionModel, hwc, score_threshold: float,
             # clip to raster extent
             boxes[:, 0::2] = np.clip(boxes[:, 0::2], 0, W)
             boxes[:, 1::2] = np.clip(boxes[:, 1::2], 0, H)
+    telemetry.count("detect.kept", len(boxes))
     return {"boxes": boxes, "scores": scores, "labels": labels}
 
 

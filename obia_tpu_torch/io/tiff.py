@@ -15,6 +15,7 @@ rasters use in practice:
 """
 from __future__ import annotations
 
+import os
 import struct
 import zlib
 from dataclasses import dataclass, field
@@ -225,7 +226,7 @@ def _parse_ifd(buf: bytes, offset: int, bo: str,
             raw = struct.unpack_from(bo + str(2 * n) + "i", buf, data_off)
             values = [raw[2 * i] / (raw[2 * i + 1] or 1) for i in range(n)]
         else:
-            values = buf[data_off:data_off + size]
+            values = bytes(buf[data_off:data_off + size])
         ifd.tags[tag] = (typ, values)
         pos += entry_size
     (next_off,) = struct.unpack_from(bo + off_fmt, buf, pos)
@@ -270,12 +271,13 @@ class TiffReader:
 
     def __init__(self, path_or_bytes):
         if isinstance(path_or_bytes, (bytes, bytearray)):
-            self._buf = bytes(path_or_bytes)
+            self._buf = bytearray(path_or_bytes)
             self.path = None
         else:
             self.path = str(path_or_bytes)
             with open(self.path, "rb") as f:
-                self._buf = f.read()
+                self._buf = bytearray(os.fstat(f.fileno()).st_size)
+                del self._buf[f.readinto(self._buf):]
         buf = self._buf
         if buf[:2] == b"II":
             self._bo = "<"
@@ -362,20 +364,26 @@ class TiffReader:
 
     # -- decoding -------------------------------------------------------------
     def _decode_chunk(self, idx: int, rows: int, cols: int, spp: int) -> np.ndarray:
-        raw = self._buf[self.chunk_offsets[idx]:
-                        self.chunk_offsets[idx] + self.chunk_counts[idx]]
-        data = _decompress(raw, self.compression)
+        """The chunk as (rows, cols, spp); an uncompressed one is a view of
+        the file's bytes."""
+        off = self.chunk_offsets[idx]
+        data = memoryview(self._buf)[off:off + self.chunk_counts[idx]]
+        if self.compression != 1:
+            data = _decompress(bytes(data), self.compression)
         expected = rows * cols * spp * self.dtype.itemsize
         if len(data) < expected:
-            data = data + b"\0" * (expected - len(data))
-        arr = np.frombuffer(data[:expected], dtype=self.dtype).reshape(rows, cols, spp)
+            data = bytes(data) + b"\0" * (expected - len(data))
+        arr = np.frombuffer(data, dtype=self.dtype,
+                            count=rows * cols * spp).reshape(rows, cols, spp)
         if self.predictor != 1:
             arr = _undo_predictor(arr.copy(), self.predictor)
         return arr
 
     def read(self, window: Optional[Tuple[int, int, int, int]] = None) -> np.ndarray:
         """Read the raster as (H, W, C). ``window`` = (row0, col0, h, w);
-        windowed reads decode only the intersecting strips/tiles."""
+        windowed reads decode only the intersecting strips/tiles. A whole
+        raster of uncompressed pixel-interleaved strips stored back to back
+        is a view of the reader's buffer, not a copy."""
         if window is not None and self.planar == 1:
             return self._read_window(*window)
         H, W, C = self.height, self.width, self.spp
@@ -422,8 +430,21 @@ class TiffReader:
                 out[rr0 - r0:rr1 - r0, :] = strip[rr0 - sr0:rr1 - sr0, c0:c1]
         return out
 
+    def _in_place(self) -> bool:
+        """The raster lies in the file as it is returned: uncompressed
+        strips without a predictor, stored in order with no gap."""
+        offs, counts = self.chunk_offsets, self.chunk_counts
+        size = self.height * self.width * self.spp * self.dtype.itemsize
+        return (bool(offs) and self.compression == 1 and self.predictor == 1
+                and sum(counts) == size and offs[0] % self.dtype.itemsize == 0
+                and offs[0] + size <= len(self._buf)
+                and all(o + c == n for o, c, n in zip(offs, counts, offs[1:])))
+
     def _read_striped(self) -> np.ndarray:
         H, W, C = self.height, self.width, self.spp
+        if self._in_place():
+            return np.frombuffer(self._buf, self.dtype, H * W * C,
+                                 self.chunk_offsets[0]).reshape(H, W, C)
         out = np.empty((H, W, C), self.dtype)
         rps = self.rows_per_strip
         for s, off in enumerate(self.chunk_offsets):

@@ -179,6 +179,31 @@ def test_tiff_reader_equals_reference(name, tmp_path):
                                   want.read((5, 7, 20, 30)))
 
 
+@pytest.mark.parametrize("dtype,source", [(np.uint8, "path"),
+                                          (np.uint16, "path"),
+                                          (np.uint8, "bytes")])
+def test_uncompressed_strips_are_read_in_place(dtype, source, tmp_path):
+    """Uncompressed strips stored back to back (several, at over 1 MB) come
+    back as a writable view of the reader's buffer, equal to what was
+    written and to the reference's read; a window is still a copy."""
+    arr = np.random.default_rng(7).integers(
+        0, 1000, (400, 700, 4)).astype(dtype)
+    path = str(tmp_path / "flat.tif")
+    write_tiff(path, arr, transform=JAffine(1, 0, 0, 0, -1, 400),
+               compression="none", tiled=False)
+    src = open(path, "rb").read() if source == "bytes" else path
+    r = TiffReader(src)
+    assert len(r.chunk_offsets) > 1
+    got = r.read()
+    np.testing.assert_array_equal(got, arr)
+    np.testing.assert_array_equal(got, JTiffReader(path).read())
+    assert got.flags.writeable
+    assert np.shares_memory(got, np.frombuffer(r._buf, np.uint8))
+    window = r.read((10, 20, 30, 40))
+    np.testing.assert_array_equal(window, arr[10:40, 20:60])
+    assert not np.shares_memory(window, got)
+
+
 AFFINES = [(2, 0, 600000, 0, -2, 5100000), (0.5, 0.1, -3, 0.2, -0.25, 7),
            (1, 0, 0, 0, 1, 0)]
 
