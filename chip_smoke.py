@@ -244,6 +244,16 @@ any failure raises and exits non-zero:
    detection`` in a new process: the tool's keys with ``device`` and
    ``launches``, a finite loss, its walls logged. The whole script's time
    is logged.
+28. SLIC's k-means pass kernel (``ops/slic_kernel``, ``csrc/slic.cu``)
+   against its twin on the card, at the two ``c4`` cells' sizes (10000^2
+   and 1024^2; a seeded smooth 3-band Lab-range scene made on the card,
+   3000 segments, compactness 10, 10 iterations): one pass's labels
+   bitwise the twin's given the same centres, ``_slic_iterate``'s labels
+   against the twin's loop (assign, ``slic_update_sums64``,
+   ``update_centers``) on every pixel, its launches (11), and, with CUDA
+   events, the whole loop, one accumulate pass and the assign pass beside
+   the twin's loop and the bytes bound (each pass reads the channels and
+   the mask once, 13 B/px; the assign pass writes 8 B/px of labels).
 
 After the build a line gives the quickshift kernels' registers, spilled
 bytes and pixels a thread (P) as the library reports them. The last two
@@ -2616,9 +2626,9 @@ def bench_row(card: str, config: int, size=None, env=None,
     line is a row with ``value`` > 0 on this card whose path's kernels
     launched, and its ``n_objects`` equals ``want`` unless that is None.
     Logs the row after ``tag``; returns it."""
-    need = {1: ("glcm_sums",), 4: ("glcm_sums",),
+    need = {1: ("glcm_sums", "slic_pass"), 4: ("glcm_sums", "slic_pass"),
             2: ("glcm_sums", "qs_density", "qs_parent"),
-            5: ("glcm_sums", "glcm_hist"), 3: ()}
+            5: ("glcm_sums", "glcm_hist", "slic_pass"), 3: ("slic_pass",)}
     cmd = [sys.executable, "-m", "obia_tpu_torch.bench", "--config",
            str(config), *([str(size)] if size else [])]
     t0 = time.perf_counter()
@@ -3160,6 +3170,139 @@ def detection_bench_phase(card: str, size: int = tbench.DETECTION_SIZE
     return got
 
 
+# -- phase 28: SLIC's k-means pass kernel against its twin --------------------
+
+SLIC_SIZES = (NS_SIZE, 1024)  # the c4 cells' scenes: 100 MP, a 1024^2 tile
+SLIC_ITERS = 10               # slic_dense's max_num_iter in both cells
+
+
+def slic_scene(size: int, device, seed: int = 0):
+    """A seeded smooth (size, size, 3) float32 scene in Lab's ranges (L in
+    [0, 100], a and b in [-50, 50]), made on ``device``: a few regions a
+    grid cell, with a little noise."""
+    import torch
+    rng = np.random.default_rng(seed)
+    yy = torch.arange(size, dtype=torch.float32, device=device)[:, None]
+    xx = torch.arange(size, dtype=torch.float32, device=device)[None, :]
+    gen = torch.Generator(device=device).manual_seed(seed)
+    planes = []
+    for c, (lo, hi) in enumerate(((0.0, 100.0), (-50.0, 50.0),
+                                  (-50.0, 50.0))):
+        fy, fx = rng.uniform(5, 40, 2).tolist()
+        p = (torch.sin(yy / fy + c) + torch.cos(xx / fx - c)
+             + ((torch.div(yy, 9 + c, rounding_mode="floor")
+                 + torch.div(xx, 13 + c, rounding_mode="floor")) % 3) / 2.0)
+        p = p + 0.05 * torch.randn((size, size), generator=gen,
+                                   device=device)
+        p = (p - p.min()) / (p.max() - p.min())
+        planes.append(lo + (hi - lo) * p)
+    return torch.stack(planes, -1).contiguous()
+
+
+def slic_bound_ms(pixels: int, C: int, passes: int,
+                  label_passes: int = 1) -> float:
+    """The least time of ``passes`` SLIC passes at 3.35 TB/s: each reads the
+    C float32 channels and the bool mask once (4C + 1 B/px); a pass that
+    writes labels writes 8 B/px more."""
+    return pixels * ((4 * C + 1) * passes + 8 * label_passes) \
+        / HBM_BYTES_PER_MS
+
+
+def slic_twin_iterate(img, valid, gh: int, gw: int, compactness: float,
+                      n_iter: int, step: int, half: int):
+    """The twin's k-means loop on the tensors' device: the plain
+    assignment, ``slic_update_sums64`` and ``update_centers``, then the
+    final assignment."""
+    from obia_tpu_torch.ops import slic as tslic
+    K, C = gh * gw, img.shape[2]
+    ratio = (compactness / step) ** 2
+    centers = tslic.initial_centers(img, gh, gw, step, half)
+    for _ in range(n_iter):
+        lab = tslic.slic_assign_reference(img, valid, centers, gh, gw,
+                                          ratio, step=float(step))
+        out = tslic.slic_update_sums64(img, lab, K).float()
+        centers = tslic.update_centers(out[:, :C + 2], out[:, C + 2],
+                                       centers)
+    return tslic.slic_assign_reference(img, valid, centers, gh, gw, ratio,
+                                       step=float(step)), centers
+
+
+def slic_kernel_phase(card: str, sizes=SLIC_SIZES) -> dict:
+    """Phase 28: the SLIC pass kernel against its twin at each size of
+    ``sizes``; returns the kernel's numbers for the JSON line."""
+    import torch
+    from obia_tpu_torch import telemetry
+    from obia_tpu_torch.ops import slic as tslic
+    from obia_tpu_torch.ops import slic_kernel as sk
+    out = {}
+    for size in sizes:
+        img = slic_scene(size, "cuda")
+        valid = torch.ones((size, size), dtype=torch.bool, device="cuda")
+        gh, gw = tslic._grid_shape(size, size, N_SEGMENTS)
+        step = tslic._grid_step(size, size, N_SEGMENTS)
+        half = tslic._grid_half(size, size, N_SEGMENTS)
+        ratio = (10.0 / step) ** 2
+        what = f"phase 28, {size}^2 x 3, {gh} x {gw} centres"
+
+        def run():
+            return tslic._slic_iterate(img, valid, gh, gw, 10.0, SLIC_ITERS,
+                                       grid_step=step, grid_half=half)
+
+        before = telemetry.counters().get("kernel.slic_pass", 0)
+        got = run()
+        torch.cuda.synchronize()
+        launched = telemetry.counters().get("kernel.slic_pass", 0) - before
+        want, centers = slic_twin_iterate(img, valid, gh, gw, 10.0,
+                                          SLIC_ITERS, step, half)
+        mismatch = int((got != want).sum())
+        # one pass given the same centres: bitwise
+        lab_k, sums_k = sk.slic_pass(img, valid, centers, gh, gw, ratio,
+                                     step=float(step), sums=True)
+        lab_t = tslic.slic_assign_reference(img, valid, centers, gh, gw,
+                                            ratio, step=float(step))
+        sums_t = tslic.slic_update_sums64(img, lab_t, gh * gw)
+        pass_same = bool(torch.equal(lab_k, lab_t))
+        sums_same = bool(torch.equal(sums_k.float(), sums_t.float()))
+        sums_gap = float((sums_k - sums_t).abs().max())
+        log(f"{what}: {launched} launches; loop labels differ from the "
+            f"twin's at {mismatch} of {size * size} pixels; one pass given "
+            f"the same centres: labels equal {pass_same}, float32 sums "
+            f"equal {sums_same} (float64 widest gap {sums_gap:.3e})")
+        if not pass_same or not sums_same:
+            raise AssertionError(f"{what}: the pass differs from its twin")
+        if launched != SLIC_ITERS + 1:
+            raise AssertionError(f"{what}: {launched} launches, expected "
+                                 f"{SLIC_ITERS + 1}")
+        if mismatch > 1e-5 * size * size:
+            raise AssertionError(f"{what}: {mismatch} labels differ")
+        del want, lab_t, sums_t
+        reps = 3 if size >= 4096 else 20
+        ms = time_ms(run, reps)
+        plain_ms = time_ms(lambda: slic_twin_iterate(
+            img, valid, gh, gw, 10.0, SLIC_ITERS, step, half), 1 if
+            size >= 4096 else 3)
+        acc_ms = time_ms(lambda: sk.slic_pass(
+            img, valid, centers, gh, gw, ratio, labels=False, sums=True),
+            3 * reps, queued=True)
+        asg_ms = time_ms(lambda: sk.slic_pass(img, valid, centers, gh, gw,
+                                              ratio), 3 * reps, queued=True)
+        px = size * size
+        bound = slic_bound_ms(px, 3, SLIC_ITERS + 1)
+        log(f"{what}: _slic_iterate {ms:.3f} ms (twin loop {plain_ms:.3f}, "
+            f"bytes bound {bound:.4f}); one accumulate pass {acc_ms:.4f} ms "
+            f"(bound {slic_bound_ms(px, 3, 1, 0):.4f}), the assign pass "
+            f"{asg_ms:.4f} ms (bound {slic_bound_ms(px, 3, 1):.4f}); "
+            f"tile plan {sk.tile_plan(size, size, gh, gw, 3, True, False)} "
+            f"({card})")
+        out[str(size)] = {"launches": launched, "label_mismatch": mismatch,
+                          "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                          "pass_ms": acc_ms, "assign_ms": asg_ms,
+                          "sums_gap": sums_gap}
+        del img, valid, got, lab_k, sums_k
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> None:
     import argparse
 
@@ -3481,6 +3624,9 @@ def main() -> None:
     detection_bench_phase(card)
     log(f"phase 27: {time.perf_counter() - t27:.1f} s")
 
+    # -- 28. SLIC's k-means pass kernel against its twin ----------------------
+    slic_numbers = slic_kernel_phase(card)
+
     log(f"all phases: {time.perf_counter() - t_start:.1f} s")
     log(card_line())
     qs_r, qs_md = 15, QS_KW["max_dist"]  # as qs_time measures
@@ -3523,7 +3669,10 @@ def main() -> None:
          "function": "glcm_spanner_hist_kernel",
          "replaces": "obia_tpu/ops/glcm_pallas.py:258",
          "launches": hist5, "max_abs_err": float(hist_err),
-         "bound_by": "bytes", "library_ms": None, **h, **ns_hist}]
+         "bound_by": "bytes", "library_ms": None, **h, **ns_hist},
+        {"name": "slic_pass", "route": "cuda",
+         "source": "obia_tpu_torch/csrc/slic.cu", "replaces": None,
+         "bound_by": "bytes", "library_ms": None, "sizes": slic_numbers}]
     for k in kernels:  # phase 25's launches, by config, and phase 26's
         k["launches_bench"] = {str(c): row["launches"][k["name"]]
                                for c, row in bench_rows.items()}

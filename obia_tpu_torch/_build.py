@@ -125,5 +125,9 @@ def load() -> ctypes.CDLL:
             lib.obia_qs_parent.restype = i
             lib.obia_qs_attributes.argtypes = [i, i, ctypes.POINTER(i)]
             lib.obia_qs_attributes.restype = i
+            lib.obia_slic_pass.argtypes = [p, p, p, p, i, ll, ll, ll, ll, ll,
+                                           ll, i, i, f, f, f, f, i, i, i, i,
+                                           p, p, p]
+            lib.obia_slic_pass.restype = i
             _lib = lib
         return _lib

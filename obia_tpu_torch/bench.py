@@ -318,7 +318,8 @@ def device_label(device) -> str:
 LAUNCH_COUNTERS = {"glcm_sums": "kernel.glcm_sums",
                    "glcm_hist": "kernel.glcm_hist",
                    "qs_density": "kernel.qs_density",
-                   "qs_parent": "kernel.qs_parent"}
+                   "qs_parent": "kernel.qs_parent",
+                   "slic_pass": "kernel.slic_pass"}
 _launches_at_reset: dict = {}
 
 

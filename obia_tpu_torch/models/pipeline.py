@@ -30,8 +30,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..device import resolve_device
-from ..ops.slic import (_grid_shape, initial_centers, slic_assign_block,
-                        slic_update_sums, slic_update_sums64, update_centers)
+from ..ops.slic import (_grid_shape, initial_centers, rounded_sums,
+                        slic_assign_and_sum, slic_assign_block,
+                        update_centers)
 from ..ops.stats import segment_sum
 from ..parallel.mesh import Mesh, ShardedRaster, psum, shard_raster
 
@@ -163,9 +164,9 @@ def obia_forward(image: torch.Tensor, model: FusedMLP, *, gh: int, gw: int,
     with torch.no_grad():
         centers = initial_centers(image, gh, gw)
         for _ in range(n_iter):
-            lab = slic_assign_block(image, valid, centers, gh, gw, ratio)
-            centers = update_centers(*slic_update_sums(image, lab, K),
-                                     centers)
+            sums = slic_assign_and_sum(image, valid, centers, gh, gw,
+                                       ratio)[1]
+            centers = update_centers(*rounded_sums(sums), centers)
         labels = slic_assign_block(image, valid, centers, gh, gw, ratio)
         feats, _ = _object_features(image, labels, K)
     return model(_standardize(feats)), labels
@@ -220,13 +221,18 @@ def make_sharded_train_step(mesh: Mesh, H: int, W: int, C: int,
     Kpad = -(-K // n_shards) * n_shards
     per_shard = Kpad // n_shards
 
-    def assign(img: ShardedRaster, i: int, j: int, centers: torch.Tensor):
+    def assign(img: ShardedRaster, i: int, j: int, centers: torch.Tensor,
+               sums: bool = False):
+        """The (i, j) block's labels, or with ``sums`` its (K, C+3) float64
+        centre-update sums."""
         blk = img.block(i, j)
         valid = torch.ones(blk.shape[:2], dtype=torch.bool,
                            device=blk.device)
-        return slic_assign_block(blk, valid, centers.to(blk.device), gh, gw,
-                                 ratio, origin=img.origin(i, j),
-                                 full_hw=(H, W))
+        args = (blk, valid, centers.to(blk.device), gh, gw, ratio)
+        kw = dict(origin=img.origin(i, j), full_hw=(H, W))
+        if sums:
+            return slic_assign_and_sum(*args, **kw)[1]
+        return slic_assign_block(*args, **kw)
 
     def train_step(image, targets, centers, model, opt_state):
         img = image if isinstance(image, ShardedRaster) else \
@@ -237,11 +243,9 @@ def make_sharded_train_step(mesh: Mesh, H: int, W: int, C: int,
         shards = list(mesh.shards())
         with torch.no_grad():
             for _ in range(n_iter):
-                out = psum(mesh, [slic_update_sums64(
-                    img.block(i, j), assign(img, i, j, centers), K,
-                    img.origin(i, j)) for i, j in shards]).float()
-                centers = update_centers(out[:, :C + 2], out[:, C + 2],
-                                         centers)
+                out = psum(mesh, [assign(img, i, j, centers, sums=True)
+                                  for i, j in shards])
+                centers = update_centers(*rounded_sums(out), centers)
             sums = psum(mesh, [_moment_sums(img.block(i, j),
                                             assign(img, i, j, centers), K)
                                for i, j in shards])

@@ -2,7 +2,12 @@
 
 Each pixel evaluates the 3x3 neighbourhood of grid cluster centres around
 its own grid cell (the candidate set of SLIC's 2S x 2S window), and the
-centre update is one ``index_add_`` over the pixels. Connectivity is then
+centre update sums the pixels of each cluster in float64, rounded once. On
+a CUDA tensor each k-means pass is one launch of the hand-written kernel
+(:mod:`obia_tpu_torch.ops.slic_kernel`, ``csrc/slic.cu``), which assigns and
+accumulates the centre sums on chip; on any other tensor the plain twin
+runs (:func:`slic_assign_reference`, then :func:`slic_update_sums64`, one
+``index_add_`` over the pixels). Connectivity is then
 enforced by :mod:`obia_tpu_torch.ops.connectivity` (exact CCL, dense
 relabel, small-segment merge), all on the labels' device; the finished
 labels leave it once, as row-wise runs (:func:`download_labels_rle`).
@@ -22,6 +27,7 @@ import numpy as np
 import torch
 
 from .connectivity import ccl_dense_labels, dense_relabel, merge_small_device
+from .slic_kernel import slic_pass
 from .stats import segment_sum
 
 _OFFSETS9 = tuple((di, dj) for di in (-1, 0, 1) for dj in (-1, 0, 1))
@@ -94,6 +100,10 @@ def _block_coords(h: int, w: int, origin: Tuple[int, int], device):
     return rows, cols, yy, xx
 
 
+def _contiguous(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    return t.contiguous() if t is not None else None
+
+
 def slic_assign_block(img: torch.Tensor, valid: torch.Tensor,
                       centers: torch.Tensor, gh: int, gw: int, ratio: float,
                       inv_max_dc: Optional[torch.Tensor] = None,
@@ -105,7 +115,57 @@ def slic_assign_block(img: torch.Tensor, valid: torch.Tensor,
     """Assignment step for an (h, w) block whose first pixel is the global
     pixel ``origin`` of an image of ``full_hw`` (default: the block is the
     image): (h, w) int64 labels in [0, gh*gw), -1 where not valid. The
-    centres are the full replicated grid, so a block needs no halo."""
+    centres are the full replicated grid, so a block needs no halo. A CUDA
+    tensor takes the kernel's assign pass (one launch), any other tensor
+    :func:`slic_assign_reference`."""
+    if img.device.type == "cuda":
+        return slic_pass(img.contiguous(), valid.contiguous(),
+                         centers.contiguous(), gh, gw, ratio,
+                         _contiguous(inv_max_dc), step, spacing, origin,
+                         full_hw)[0]
+    return slic_assign_reference(img, valid, centers, gh, gw, ratio,
+                                 inv_max_dc, step, spacing, origin, full_hw)
+
+
+def slic_assign_and_sum(img: torch.Tensor, valid: torch.Tensor,
+                        centers: torch.Tensor, gh: int, gw: int,
+                        ratio: float,
+                        inv_max_dc: Optional[torch.Tensor] = None,
+                        step: float = 1.0,
+                        spacing: Optional[Tuple[float, float]] = None,
+                        origin: Tuple[int, int] = (0, 0),
+                        full_hw: Optional[Tuple[int, int]] = None,
+                        labels: bool = False
+                        ) -> Tuple[Optional[torch.Tensor], torch.Tensor]:
+    """One k-means pass over a block, as :func:`slic_assign_block` takes
+    it: (its labels, or None where a CUDA tensor was not asked for them;
+    the block's (gh*gw, C+3) float64 centre-update sums, as
+    :func:`slic_update_sums64` gives them, which a sharded run adds over
+    its blocks before :func:`rounded_sums`). A CUDA tensor takes one launch
+    of the kernel, which assigns and accumulates on chip; any other tensor
+    :func:`slic_assign_reference`, then :func:`slic_update_sums64`."""
+    if img.device.type == "cuda":
+        return slic_pass(img.contiguous(), valid.contiguous(),
+                         centers.contiguous(), gh, gw, ratio,
+                         _contiguous(inv_max_dc), step, spacing, origin,
+                         full_hw, labels=labels, sums=True)
+    lab = slic_assign_reference(img, valid, centers, gh, gw, ratio,
+                                inv_max_dc, step, spacing, origin, full_hw)
+    return lab, slic_update_sums64(img, lab, gh * gw, origin)
+
+
+def slic_assign_reference(img: torch.Tensor, valid: torch.Tensor,
+                          centers: torch.Tensor, gh: int, gw: int,
+                          ratio: float,
+                          inv_max_dc: Optional[torch.Tensor] = None,
+                          step: float = 1.0,
+                          spacing: Optional[Tuple[float, float]] = None,
+                          origin: Tuple[int, int] = (0, 0),
+                          full_hw: Optional[Tuple[int, int]] = None
+                          ) -> torch.Tensor:
+    """The plain twin of the kernel's assignment, on any device: for each of
+    the 9 candidate offsets in turn, D^2 over the whole block, kept on a
+    strict <."""
     h, w, C = img.shape
     H, W = full_hw if full_hw is not None else (h, w)
     dev = img.device
@@ -159,13 +219,11 @@ def slic_update_sums64(img: torch.Tensor, labels: torch.Tensor, K: int,
                        torch.where(ok, lab, 0), K)
 
 
-def slic_update_sums(img: torch.Tensor, labels: torch.Tensor, K: int,
-                     origin: Tuple[int, int] = (0, 0)):
-    """Centre-update sums of a block at ``origin``: ((K, C+2) feature +
-    position sums, (K,) counts)."""
-    C = img.shape[2]
-    out = slic_update_sums64(img, labels, K, origin).float()
-    return out[:, :C + 2], out[:, C + 2]
+def rounded_sums(sums64: torch.Tensor):
+    """(K, C+3) float64 centre-update sums rounded once to float32:
+    ((K, C+2) feature + position sums, (K,) counts)."""
+    out = sums64.float()
+    return out[:, :-1], out[:, -1]
 
 
 def update_centers(sums: torch.Tensor, cnts: torch.Tensor,
@@ -186,7 +244,13 @@ def _slic_iterate(img: torch.Tensor, valid: torch.Tensor, gh: int, gw: int,
                   spacing: Optional[Tuple[float, float]] = None
                   ) -> torch.Tensor:
     """Core k-means loop: (H, W) int64 cluster ids in [0, gh*gw), -1 where
-    not valid."""
+    not valid. Each of the ``max_num_iter`` updates reads the sums of one
+    :func:`slic_assign_and_sum` pass, which on the card writes no labels
+    (SLICO's writes them, for its colour scale), and one assign-only pass
+    writes the labels: ``max_num_iter + 1`` launches of
+    ``kernel.slic_pass`` on the card, 11 at the default 10 iterations."""
+    img = img.contiguous()
+    valid = valid.contiguous()
     H, W, C = img.shape
     K = gh * gw
     step = float(grid_step) if grid_step else math.sqrt(H * W / K)
@@ -199,12 +263,16 @@ def _slic_iterate(img: torch.Tensor, valid: torch.Tensor, gh: int, gw: int,
                                  inv_max_dc=inv_max_dc, step=step,
                                  spacing=spacing)
 
-    def update(labels, centers):
-        return update_centers(*slic_update_sums(img, labels, K), centers)
+    def update(centers, inv_max_dc=None, labels=False):
+        """(the pass's labels, or None; the centres it updates to)."""
+        lab, sums = slic_assign_and_sum(img, valid, centers, gh, gw, ratio,
+                                        inv_max_dc, step, spacing,
+                                        labels=labels)
+        return lab, update_centers(*rounded_sums(sums), centers)
 
     if not slic_zero:
         for _ in range(max_num_iter):
-            centers = update(assign(centers), centers)
+            centers = update(centers)[1]
         return assign(centers)
 
     def color_dist_max(labels, centers):
@@ -222,8 +290,7 @@ def _slic_iterate(img: torch.Tensor, valid: torch.Tensor, gh: int, gw: int,
     inv_max_dc = torch.full((gh, gw), 1.0 / (10.0 ** 2), dtype=torch.float32,
                             device=img.device)
     for _ in range(max_num_iter):
-        labels = assign(centers, inv_max_dc)
-        centers = update(labels, centers)
+        labels, centers = update(centers, inv_max_dc, labels=True)
         mx = color_dist_max(labels, centers)
         inv_max_dc = (1.0 / (mx * mx)).reshape(gh, gw)
     return assign(centers, inv_max_dc)

@@ -30,8 +30,9 @@ import torch
 from ..ops.connectivity import (_merge_final_lut, _merge_lut_loop,
                                 ccl_dense_labels, label_edges)
 from ..ops.slic import (_grid_half, _grid_shape, _grid_step,
-                        centers_from_seeds, seed_positions, slic_assign_block,
-                        slic_update_sums64, update_centers)
+                        centers_from_seeds, rounded_sums, seed_positions,
+                        slic_assign_and_sum, slic_assign_block,
+                        update_centers)
 from ..ops.stats import (SPECTRAL_PACK_ORDER, _moments_finalize,
                          moment_minmax, moment_pass1, moment_pass2,
                          moment_pixels)
@@ -72,7 +73,6 @@ def sharded_slic_assign(mesh: Mesh, image: ShardedRaster, n_segments: int,
     (gh, gw, C+2) centres on the home device)."""
     Hp, Wp = image.padded_hw
     gh, gw = _grid_shape(Hp, Wp, n_segments)
-    K = gh * gw
     # the single-device path's integer grid step and seed offset, so
     # sharded labels are the single-device labels
     step = _grid_step(Hp, Wp, n_segments)
@@ -81,21 +81,21 @@ def sharded_slic_assign(mesh: Mesh, image: ShardedRaster, n_segments: int,
         Hp, Wp, gh, gw, step, _grid_half(Hp, Wp, n_segments), mesh.home)
     centers = centers_from_seeds(gather_pixels(image, cyi, cxi), cy0, cx0)
 
-    def assign(blk, i, j, c):
+    def assign(blk, i, j, c, sums: bool = False):
+        """The block's labels, or with ``sums`` its (gh*gw, C+3) float64
+        centre-update sums."""
         valid = torch.ones(blk.shape[:2], dtype=torch.bool, device=blk.device)
-        return slic_assign_block(blk, valid, c.to(blk.device), gh, gw,
-                                 ratio, origin=image.origin(i, j),
-                                 full_hw=(Hp, Wp))
+        args = (blk, valid, c.to(blk.device), gh, gw, ratio)
+        kw = dict(origin=image.origin(i, j), full_hw=(Hp, Wp))
+        if sums:
+            return slic_assign_and_sum(*args, **kw)[1]
+        return slic_assign_block(*args, **kw)
 
-    C = image.block(0, 0).shape[2]
     for _ in range(max_num_iter):
-        parts = []
-        for i, j in mesh.shards():
-            blk = image.block(i, j)
-            parts.append(slic_update_sums64(blk, assign(blk, i, j, centers),
-                                            K, image.origin(i, j)))
-        out = psum(mesh, parts).float()    # float64 sums, rounded once
-        centers = update_centers(out[:, :C + 2], out[:, C + 2], centers)
+        out = psum(mesh, [assign(image.block(i, j), i, j, centers, sums=True)
+                          for i, j in mesh.shards()])
+        # float64 sums, rounded once
+        centers = update_centers(*rounded_sums(out), centers)
     return image.map(lambda blk, i, j: assign(blk, i, j, centers)), centers
 
 

@@ -136,7 +136,8 @@ def test_row_keys_and_values():
     assert row["value"] == row["megapixels"] / row["elapsed_s"]
     assert row["elapsed_s"] == row["first_run_s"]  # one run
     assert row["launches"] == dict.fromkeys(
-        ("glcm_sums", "glcm_hist", "qs_density", "qs_parent"), 0)
+        ("glcm_sums", "glcm_hist", "qs_density", "qs_parent", "slic_pass"),
+        0)
     row2 = tbench.bench_config2(48, device="cpu", emit=False)
     assert set(row2) == ROW_KEYS and row2["forest"] is None
 

@@ -213,7 +213,7 @@ def test_alias_phase_runs_on_the_cpu(alias_run):
                                       size=96, device="cpu", n_segments=30,
                                       cross=48, n_points=40)
     assert set(launches) == {"glcm_sums", "glcm_hist", "qs_density",
-                             "qs_parent"}
+                             "qs_parent", "slic_pass"}
     assert not any(launches.values())  # the CPU takes the twins
 
 
@@ -351,3 +351,36 @@ def test_north_star_runs_logs_the_warm_runs_sweeps(monkeypatch, capsys):
     line = capsys.readouterr().out
     assert warm_sweeps[1] >= 1
     assert f"; CCL sweeps {warm_sweeps[1]} (cpu)" in line
+
+
+# -- phase 28's inputs and yardsticks (the SLIC pass kernel), on the CPU -----
+
+def test_slic_scene_is_seeded_and_in_lab_ranges():
+    import torch
+    a = chip_smoke.slic_scene(24, "cpu", seed=3)
+    b = chip_smoke.slic_scene(24, "cpu", seed=3)
+    assert a.shape == (24, 24, 3) and a.dtype == torch.float32
+    assert torch.equal(a, b) and a.is_contiguous()
+    assert not torch.equal(a, chip_smoke.slic_scene(24, "cpu", seed=4))
+    for c, (lo, hi) in enumerate(((0, 100), (-50, 50), (-50, 50))):
+        assert float(a[..., c].min()) == pytest.approx(lo, abs=1e-4)
+        assert float(a[..., c].max()) == pytest.approx(hi, abs=1e-4)
+
+
+def test_slic_twin_iterate_is_the_cpu_loop():
+    """On the CPU ``_slic_iterate`` runs the twin, so phase 28's written-out
+    twin loop gives its labels; and the bytes bound of 11 passes at 100 MP:
+    13 B/px a pass and 8 B/px of labels."""
+    import torch
+    from obia_tpu_torch.ops import slic as tslic
+    img = chip_smoke.slic_scene(40, "cpu", seed=1)
+    valid = torch.ones((40, 40), dtype=torch.bool)
+    gh, gw = tslic._grid_shape(40, 40, 25)
+    step, half = tslic._grid_step(40, 40, 25), tslic._grid_half(40, 40, 25)
+    want = tslic._slic_iterate(img, valid, gh, gw, 10.0, 4, grid_step=step,
+                               grid_half=half)
+    got, centers = chip_smoke.slic_twin_iterate(img, valid, gh, gw, 10.0, 4,
+                                                step, half)
+    assert torch.equal(got, want) and centers.shape == (gh, gw, 5)
+    assert chip_smoke.slic_bound_ms(10 ** 8, 3, 11) == pytest.approx(
+        1e8 * (13 * 11 + 8) / 3.35e9)

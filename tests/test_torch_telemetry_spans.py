@@ -287,8 +287,10 @@ def test_bench_launch_keys_read_the_counters():
     tbench.reset_launches()
     telemetry.count("kernel.glcm_sums", 3)
     telemetry.count("kernel.qs_parent")
+    telemetry.count("kernel.slic_pass", 11)
     assert tbench.kernel_launches() == {"glcm_sums": 3, "glcm_hist": 0,
-                                        "qs_density": 0, "qs_parent": 1}
+                                        "qs_density": 0, "qs_parent": 1,
+                                        "slic_pass": 11}
     tbench.reset_launches()
     assert not any(tbench.kernel_launches().values())
     telemetry.reset()
